@@ -1,0 +1,52 @@
+"""Carry state across packages: numpy arrays → the port's objects.
+
+A fit made by the JAX package, exported as numpy arrays, becomes the
+port's ``FoldStats`` or a fitted ``BrainEncoder`` here, so both packages
+can be held to the same statistics and weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.foldstats import FoldStats
+from repro_torch.device import as_tensor, resolve_device
+from repro_torch.encoding.config import EncoderConfig
+from repro_torch.encoding.dispatch import DispatchDecision
+from repro_torch.encoding.estimator import BrainEncoder, EncodingReport
+from repro_torch.encoding.pipeline import Standardizer
+
+
+def fold_stats_from_numpy(G, C, xsum, ysum, ysq, count, *,
+                          device: torch.device | str | None = None
+                          ) -> FoldStats:
+    """``FoldStats`` from the six per-fold arrays (as f32 tensors)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return as_tensor(np.asarray(a, np.float32), dev)
+
+    return FoldStats(G=t(G), C=t(C), xsum=t(xsum), ysum=t(ysum), ysq=t(ysq),
+                     count=t(count))
+
+
+def encoder_from_numpy(weights, best_lambda, cv_scores, lambdas,
+                       decision: dict, standardizer: dict | None = None, *,
+                       device: torch.device | str | None = None
+                       ) -> BrainEncoder:
+    """A fitted ``BrainEncoder`` from a fit's arrays and its decision dict
+    (``dataclasses.asdict`` of a dispatch decision, or a report's
+    ``to_dict()["decision"]``).  ``standardizer`` holds any of ``mu_x``,
+    ``sd_x``, ``mu_y``, ``sd_y``."""
+    enc = BrainEncoder(EncoderConfig(lambdas=tuple(lambdas)), device=device)
+    enc.report_ = EncodingReport(
+        weights=as_tensor(np.asarray(weights, np.float32), enc.device),
+        best_lambda=np.atleast_1d(np.asarray(best_lambda, np.float64)),
+        cv_scores=np.atleast_2d(np.asarray(cv_scores, np.float64)),
+        lambdas=tuple(lambdas), decision=DispatchDecision(**decision))
+    if standardizer is not None:
+        enc.standardizer_ = Standardizer(**{
+            k: None if v is None else as_tensor(np.asarray(v, np.float32),
+                                                enc.device)
+            for k, v in standardizer.items()})
+    return enc

@@ -1,0 +1,12 @@
+"""Low-level solver layer of the port: the paper's multi-target ridge.
+
+  ridge.RidgeCVConfig / ridge.ridge_cv   — mutualised single-shard RidgeCV
+  foldstats.compute / FoldStats          — single-pass fold statistics
+  scoring.pearson_r                      — encoding performance metric
+  complexity                             — analytic cost model (paper §3)
+"""
+from repro_torch.core import complexity, foldstats, ridge, scoring  # noqa: F401
+from repro_torch.core.foldstats import FoldStats  # noqa: F401
+from repro_torch.core.ridge import (  # noqa: F401
+    PAPER_LAMBDA_GRID, RidgeCVConfig, RidgeCVResult, ridge_cv,
+)

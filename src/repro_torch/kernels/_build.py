@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
+
+The sources under ``kernels/csrc/`` expose a plain C interface, so they are
+compiled by ``nvcc`` alone — no PyTorch headers — into one shared library
+for Hopper (``sm_90a``) and loaded with ``ctypes``.  The build happens at
+first use, into ``build/kernels/`` at the repository root; the library's
+file name carries a hash of the sources and flags, so a changed source is
+rebuilt and an unchanged one is loaded as it is.  A failed build or load
+raises with nvcc's output: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+
+_LOCK = threading.Lock()
+
+
+@functools.cache
+def _sources() -> tuple[Path, ...]:
+    return tuple(sorted(CSRC.glob("*.cu")))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the "
+                       "port's CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the sources if their library is missing.
+
+    Returns the library path and the compiler's output (``-Xptxas -v``:
+    registers, shared memory and spills of every kernel), empty when the
+    library was already built.
+    """
+    lib = library_path()
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The built library with every entry point's signature declared."""
+    with _LOCK:
+        path, _ = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise RuntimeError(f"cannot load {path}: {e}") from e
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("repro_xty_folds_f32", "repro_xty_folds_bf16"):
+        fn = getattr(lib, name)
+        # x, y, bounds (host int64 k×2), out, p, q, k, device, stream
+        fn.argtypes = [ptr, ptr, ctypes.POINTER(i64), ptr, i64, i64, i32, i32,
+                       ptr]
+        fn.restype = i32
+    lib.repro_cuda_error_string.argtypes = [i32]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,219 @@
+// Per-fold cross-Gram on Hopper: out[f] = X[lo_f:hi_f]ᵀ · Y[lo_f:hi_f].
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/gram.py:
+//   * xty_folds (the per-fold [G | C] statistics of core/foldstats.py), and
+//   * xty (XᵀY; the dual path's XXᵀ and Xᵀα), which is the one-fold case
+//     bounds = {(0, n)} of the same kernel.
+//
+// What bounds it on this card: f32 arithmetic.  The reference accumulates in
+// f32 (preferred_element_type), so the port uses no TF32 tensor-core `mma`;
+// each output element costs 2·rows FLOPs of f32 FMA on the CUDA cores (67
+// TFLOP/s on an H100 SXM at 700 W) against 4 bytes read per input element.
+// At the main path's shapes (n = 69,202 rows, p = 16,384, q = 16,828) that is
+// ~3.8e13 FLOPs for ~15 GB of traffic: compute-bound by two orders of
+// magnitude.
+//
+// What the design does about it:
+//   * Each block owns one (fold, 128-row i tile, 128-column j tile) output
+//     tile and loops over that fold's rows itself.  The TPU kernel carries
+//     its accumulator across a sequential grid axis; Hopper runs blocks in
+//     parallel and in no order, so the row loop lives inside the block.
+//     Nothing is shared between blocks: no atomics, deterministic results.
+//   * Rows are read in place between the fold bounds (int64, passed by
+//     value as a kernel parameter, so a launch queues no host-to-device
+//     copy and no stream synchronisation).  There is no repack of X into fold-aligned blocks and no
+//     zero padding: ragged n, p and q are masked at the loads and the store.
+//   * Register blocking: 256 threads, 8×8 f32 accumulators each, fed from a
+//     double-buffered shared-memory stage of 8 rows × 128 columns per
+//     operand, so each shared-memory float feeds 8 FMAs.  The next stage is
+//     loaded from global memory into registers while the current one is
+//     multiplied.
+//   * bf16 inputs are converted to f32 with __bfloat162float at the load;
+//     the product of two bf16 values is exact in f32.
+//   * Every offset is int64: at the main path's shapes n·(p+t) is ~1.2e9
+//     elements and the (k, p, q) output ~1.4e9.
+// Not done yet (later work): wgmma/TMA pipelines are bf16/TF32-only on the
+// tensor cores and do not apply to full f32; a split over rows for the
+// narrow dual XXᵀ (n×n output from p = 16,384 rows) would fill more SMs.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockI = 128;   // output rows per block (columns of x)
+constexpr int kBlockJ = 128;   // output columns per block (columns of y)
+constexpr int kStageRows = 8;  // input rows per shared-memory stage
+constexpr int kThreads = 256;
+constexpr int kMaxFolds = 64;  // 1 KiB of kernel parameters
+
+// k × (lo, hi) row bounds, by value in the kernel's parameter space.
+struct FoldBounds {
+  long long v[2 * kMaxFolds];
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One stage of one operand: rows [row0, row0 + 8) ∩ [.., row_end), columns
+// [col0, col0 + 128) ∩ [.., ncols).  Thread t takes row t / 32 and columns
+// lane, lane + 32, lane + 64, lane + 96, so each warp-wide load is 32
+// consecutive elements of one row.
+template <typename T>
+__device__ __forceinline__ void load_stage(const T* __restrict__ src,
+                                           long long ld, long long row0,
+                                           long long row_end, long long col0,
+                                           long long ncols, int tid,
+                                           float (&reg)[4]) {
+  const long long row = row0 + (tid >> 5);
+  const int lane = tid & 31;
+  const bool row_ok = row < row_end;
+  const T* base = src + row * ld;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const long long col = col0 + lane + 32 * e;
+    reg[e] = (row_ok && col < ncols) ? to_f32(base[col]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_stage(float (*dst)[kBlockI], int tid,
+                                            const float (&reg)[4]) {
+  const int r = tid >> 5;
+  const int lane = tid & 31;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) dst[r][lane + 32 * e] = reg[e];
+}
+
+// grid = (ceil(q / 128), ceil(p / 128), k); block = 256 threads.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    xty_folds_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                     const FoldBounds bounds, float* __restrict__ out,
+                     long long p, long long q) {
+  __shared__ __align__(16) float xs[2][kStageRows][kBlockI];
+  __shared__ __align__(16) float ys[2][kStageRows][kBlockJ];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;   // column group of the 8×8 micro-tile
+  const int ty = tid >> 4;   // row group
+  const long long fold = blockIdx.z;
+  const long long i0 = static_cast<long long>(blockIdx.y) * kBlockI;
+  const long long j0 = static_cast<long long>(blockIdx.x) * kBlockJ;
+  const long long lo = bounds.v[2 * fold];
+  const long long hi = bounds.v[2 * fold + 1];
+
+  float acc[8][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
+
+  if (lo < hi) {
+    float rx[4], ry[4];
+    load_stage(x, p, lo, hi, i0, p, tid, rx);
+    load_stage(y, q, lo, hi, j0, q, tid, ry);
+    store_stage(xs[0], tid, rx);
+    store_stage(ys[0], tid, ry);
+    __syncthreads();
+    int buf = 0;
+    for (long long r0 = lo; r0 < hi; r0 += kStageRows) {
+      const bool has_next = r0 + kStageRows < hi;
+      if (has_next) {
+        load_stage(x, p, r0 + kStageRows, hi, i0, p, tid, rx);
+        load_stage(y, q, r0 + kStageRows, hi, j0, q, tid, ry);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kStageRows; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4]);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(&xs[buf][kk][64 + ty * 4]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&ys[buf][kk][tx * 4]);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(&ys[buf][kk][64 + tx * 4]);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
+      }
+      if (has_next) {
+        // The other buffer was last read before the previous barrier.
+        store_stage(xs[buf ^ 1], tid, rx);
+        store_stage(ys[buf ^ 1], tid, ry);
+      }
+      __syncthreads();
+      buf ^= 1;
+    }
+  }
+
+  // Every block writes its whole (masked) tile, so an empty fold yields
+  // exact zeros and the wrapper may allocate the output uninitialised.
+  float* o = out + fold * p * q;
+  const bool vec = (q & 3) == 0;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const long long i = i0 + (m < 4 ? ty * 4 + m : 64 + ty * 4 + (m - 4));
+    if (i >= p) continue;
+    float* orow = o + i * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long j = j0 + h * 64 + tx * 4;
+      if (vec && j + 3 < q) {
+        *reinterpret_cast<float4*>(orow + j) =
+            make_float4(acc[m][4 * h], acc[m][4 * h + 1], acc[m][4 * h + 2],
+                        acc[m][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j + e < q) orow[j + e] = acc[m][4 * h + e];
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* y, const long long* bounds, void* out,
+           long long p, long long q, int k, int device, void* stream) {
+  if (k < 1 || k > kMaxFolds) return static_cast<int>(cudaErrorInvalidValue);
+  FoldBounds fb = {};
+  for (int i = 0; i < 2 * k; ++i) fb.v[i] = bounds[i];
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((q + kBlockJ - 1) / kBlockJ),
+                  static_cast<unsigned>((p + kBlockI - 1) / kBlockI),
+                  static_cast<unsigned>(k));
+  xty_folds_kernel<T><<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      fb, static_cast<float*>(out), p, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: (n, p) row-major, y: (n, q) row-major, bounds: k × (lo, hi) int64 in
+// host memory (1 ≤ k ≤ 64), out: (k, p, q) f32.  Launches on `stream` and
+// returns the cudaGetLastError() code of the launch (0 on success).
+int repro_xty_folds_f32(const void* x, const void* y,
+                        const long long* bounds,
+                        void* out, long long p, long long q, int k, int device,
+                        void* stream) {
+  return launch<float>(x, y, bounds, out, p, q, k, device, stream);
+}
+
+int repro_xty_folds_bf16(const void* x, const void* y,
+                         const long long* bounds,
+                         void* out, long long p, long long q, int k,
+                         int device, void* stream) {
+  return launch<__nv_bfloat16>(x, y, bounds, out, p, q, k, device, stream);
+}
+
+const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,115 @@
+"""Checked launchers of the CUDA cross-Gram kernel (``csrc/gram.cu``).
+
+Port of ``repro/kernels/gram.py``: ``xty_folds`` (per-fold ``X_fᵀY_f`` in
+one row pass) and ``xty`` (``XᵀY``, the one-fold case of the same kernel).
+Each wrapper takes CUDA tensors only, checks them, allocates the f32 output,
+launches on the current stream, raises on a launch error and counts the
+launch in ``LAUNCHES``.  The build happens at the first launch, so this
+module imports on a host without ``nvcc``; ``kernels.ops`` routes CPU
+tensors to the plain versions in ``kernels.ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+
+_TILE = 128          # output tile edge of the kernel (both axes)
+_MAX_GRID_YZ = 65535
+_MAX_FOLDS = 64      # the kernel takes the fold bounds by value (kMaxFolds)
+
+# Launches per kernel since the last ``reset_launches()``.
+LAUNCHES: dict[str, int] = {"xty": 0, "xty_folds": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_operands(x: torch.Tensor, y: torch.Tensor) -> None:
+    for name, t in (("x", x), ("y", y)):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got "
+                             f"{getattr(t, 'device', type(t))}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (row-major); pass "
+                             f"{name}.contiguous()")
+    if x.device != y.device:
+        raise ValueError(f"x on {x.device} but y on {y.device}")
+    if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x and y must share dtype float32 or bfloat16, got "
+                         f"{x.dtype} and {y.dtype}")
+    if x.shape[0] != y.shape[0]:
+        raise ValueError(f"row counts differ: x {tuple(x.shape)}, "
+                         f"y {tuple(y.shape)}")
+
+
+def _check_bounds(bounds: Sequence[tuple[int, int]], n: int
+                  ) -> list[tuple[int, int]]:
+    b = [(int(lo), int(hi)) for lo, hi in bounds]
+    ok = (bool(b) and b[0][0] == 0 and b[-1][1] == n
+          and all(lo <= hi for lo, hi in b)
+          and all(b[i][1] == b[i + 1][0] for i in range(len(b) - 1)))
+    if not ok:
+        raise ValueError(f"bounds {b} must be contiguous, ordered ranges "
+                         f"covering [0, {n})")
+    if len(b) > _MAX_FOLDS:
+        raise ValueError(f"{len(b)} folds: the kernel takes at most "
+                         f"{_MAX_FOLDS}")
+    return b
+
+
+def _launch(name: str, x: torch.Tensor, y: torch.Tensor,
+            bounds: list[tuple[int, int]]) -> torch.Tensor:
+    p, q, k = x.shape[1], y.shape[1], len(bounds)
+    out = torch.empty((k, p, q), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    if -(-p // _TILE) > _MAX_GRID_YZ:
+        raise ValueError(f"p={p} exceeds the kernel's grid limit "
+                         f"{_MAX_GRID_YZ * _TILE}")
+    lib = _build.load()
+    fn = (lib.repro_xty_folds_f32 if x.dtype == torch.float32
+          else lib.repro_xty_folds_bf16)
+    # Host memory: the C side copies it into the launch's parameters.
+    flat = (ctypes.c_longlong * (2 * k))(*(v for b in bounds for v in b))
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), y.data_ptr(), flat, out.data_ptr(), p,
+                q, k, torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg}) at x {tuple(x.shape)}, y "
+                           f"{tuple(y.shape)}, k={k}, {x.dtype}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def xty_folds(x: torch.Tensor, y: torch.Tensor,
+              bounds: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """Per-fold ``out[f] = X[lo:hi]ᵀ Y[lo:hi]`` in one launch.
+
+    ``bounds`` are contiguous row ranges covering ``[0, n)`` (as
+    ``foldstats.fold_bounds`` makes them).  x: (n, p), y: (n, q), both CUDA,
+    contiguous, float32 or bfloat16 alike → (k, p, q) float32.
+    """
+    _check_operands(x, y)
+    return _launch("xty_folds", x, y, _check_bounds(bounds, x.shape[0]))
+
+
+def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``XᵀY`` in f32: the one-fold case.  (n, p), (n, q) → (p, q)."""
+    _check_operands(x, y)
+    return _launch("xty", x, y, [(0, x.shape[0])])[0]
+
+
+def gram(x: torch.Tensor) -> torch.Tensor:
+    """``XᵀX`` (p, p) f32."""
+    return xty(x, x)

@@ -1,0 +1,41 @@
+"""Device-routed entry points of the port's kernels.
+
+Port of ``repro/kernels/ops.py``.  The route is the tensor's device: a CPU
+tensor goes to the plain version (``kernels.ref``), a CUDA tensor to the
+hand-written kernel (``kernels.gram``), which launches or raises.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import ref as _ref
+
+
+def kernel_tier_auto(device: torch.device | str) -> bool:
+    """Whether ``use_pallas=None`` turns the kernel tier on: iff CUDA."""
+    return torch.device(device).type == "cuda"
+
+
+def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """XᵀY, f32 accumulation.  (n, p), (n, q) → (p, q)."""
+    if x.device.type == "cpu":
+        return _ref.xty(x, y)
+    return _gram.xty(x, y)
+
+
+def gram(x: torch.Tensor) -> torch.Tensor:
+    """XᵀX, f32 accumulation.  (n, p) → (p, p)."""
+    if x.device.type == "cpu":
+        return _ref.gram(x)
+    return _gram.gram(x)
+
+
+def xty_folds(x: torch.Tensor, y: torch.Tensor,
+              bounds: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """Per-fold XᵀY in one row pass.  (n, p), (n, q) → (k, p, q)."""
+    if x.device.type == "cpu":
+        return _ref.xty_folds(x, y, bounds)
+    return _gram.xty_folds(x, y, bounds)

@@ -39,3 +39,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: interpret-mode Pallas / long-running tests "
                    "(excluded from the CI quick lane)")
+    # Tests of the PyTorch port's CUDA kernels: they skip without a card
+    # (decided inside the test, never at import) and run on the GPU host.
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written kernels)")

@@ -1,0 +1,127 @@
+"""The PyTorch port stands alone: no JAX, no ``repro``, no silent CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_has_every_slice_module():
+    mods = set(_port_modules())
+    for m in ("repro_torch.kernels.ref", "repro_torch.kernels.gram",
+              "repro_torch.kernels.ops", "repro_torch.kernels._build",
+              "repro_torch.core.complexity", "repro_torch.core.foldstats",
+              "repro_torch.core.ridge", "repro_torch.core.scoring",
+              "repro_torch.encoding.config", "repro_torch.encoding.dispatch",
+              "repro_torch.encoding.estimator",
+              "repro_torch.encoding.pipeline", "repro_torch.data.fmri",
+              "repro_torch.convert"):
+        assert m in mods, m
+    assert (PORT / "kernels" / "csrc" / "gram.cu").exists()
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        "import repro_torch\n"
+        f"mods = {_port_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "repro_torch.BrainEncoder, repro_torch.EncoderConfig\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k == 'repro' or k.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(_port_modules())
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_ast_scan_finds_no_jax_or_repro_import(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "flax"), (path, name)
+
+
+def test_encoder_without_cuda_raises_unless_cpu_requested():
+    from repro_torch.encoding import BrainEncoder, pipeline
+    from repro_torch.data import fmri
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BrainEncoder()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.run([[0.0]], [[0.0]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fmri.generate(fmri.SubjectSpec(n=4, p=2, t=2), torch.Generator())
+    assert BrainEncoder(device="cpu").device.type == "cpu"
+
+
+def test_use_pallas_true_on_cpu_raises():
+    from repro_torch.core import ridge
+    from repro_torch.encoding import BrainEncoder, EncoderConfig
+
+    with pytest.raises(ValueError, match="CUDA"):
+        BrainEncoder(use_pallas=True, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        EncoderConfig(use_pallas=True).ridge_cv_config(device="cpu")
+    X = torch.zeros(8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ridge.ridge_cv(X, X, ridge.RidgeCVConfig(n_folds=2, use_pallas=True))
+    # Auto resolves off on the CPU, on for CUDA.
+    assert EncoderConfig().resolve_use_pallas("cpu") is False
+    assert EncoderConfig().resolve_use_pallas("cuda") is True
+
+
+def test_unported_plans_raise_not_implemented_naming_roadmap():
+    from repro_torch.encoding import EncoderConfig, dispatch
+
+    for solver in ("mor", "bmor", "bmor_dual", "banded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dispatch.resolve(EncoderConfig(solver=solver), 100, 10, 5, 1,
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        dispatch.resolve(EncoderConfig(bands=(5, 5)), 100, 10, 5, 1,
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        dispatch.resolve(EncoderConfig(device_memory_budget=10**6),
+                         100_000, 64, 8, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        dispatch.resolve(EncoderConfig(device_memory_budget=10**9,
+                                       target_block=4), 100, 8, 16, 1,
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        EncoderConfig(bands=(2, 2)).banded_config()

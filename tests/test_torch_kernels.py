@@ -1,0 +1,187 @@
+"""The port's cross-Gram kernels against the JAX package's.
+
+On the CPU the port's entry points run the plain versions
+(``repro_torch.kernels.ref``); they are held against the Pallas kernels in
+interpret mode and against ``repro.kernels.ref`` on the same numpy inputs.
+The CUDA kernel itself is held against the plain version on a card.
+"""
+import importlib
+import subprocess
+import sys
+import os
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import foldstats as jfoldstats
+from repro.kernels import gram as jgram
+from repro.kernels import ref as jref
+from repro_torch.kernels import gram as tgram
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SHAPES_XTY = [
+    (64, 32, 48),      # ragged, smaller than one tile
+    (300, 129, 70),    # non-multiples of every block dim
+    (1024, 256, 256),  # exact tile multiples
+]
+DTYPES = ["float32", "bfloat16"]
+
+
+def _tol(dtype):
+    # As tests/test_kernels.py::_tol: blocked f32 reduction order differs.
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=2e-4)
+
+
+def _inputs(seed, shape_x, shape_y, dtype):
+    """Same values for both packages: f32 numpy, rounded to bf16 in each."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape_x).astype(np.float32)
+    y = rng.standard_normal(shape_y).astype(np.float32)
+    jx, jy = jnp.asarray(x, dtype), jnp.asarray(y, dtype)
+    tdt = getattr(torch, dtype)
+    tx, ty = torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt)
+    return jx, jy, tx, ty
+
+
+@pytest.mark.parametrize("n,p,q", SHAPES_XTY)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_xty_matches_jax_kernel_and_ref(n, p, q, dtype):
+    jx, jy, tx, ty = _inputs(n + p + q, (n, p), (n, q), dtype)
+    got = tops.xty(tx, ty)
+    assert got.dtype == torch.float32 and got.shape == (p, q)
+    jk = jgram.xty(jx, jy, block_n=128, block_p=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jk), **_tol(dtype))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.xty(jx, jy)),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("n,p", [(64, 32), (300, 129)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gram_matches_jax_ref(n, p, dtype):
+    jx, _, tx, _ = _inputs(n * p, (n, p), (n, 1), dtype)
+    got = tops.gram(tx)
+    assert got.shape == (p, p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.gram(jx)),
+                               **_tol(dtype))
+    np.testing.assert_allclose(got.numpy(), tref.xty(tx, tx).numpy(),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,p,q,k", [(203, 24, 17, 5), (64, 16, 9, 4),
+                                     (130, 33, 40, 3)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_xty_folds_matches_jax_kernel(n, p, q, k, dtype):
+    bounds = jfoldstats.fold_bounds(n, k)          # uneven when k ∤ n
+    jx, jy, tx, ty = _inputs(n + k, (n, p), (n, q), dtype)
+    got = tops.xty_folds(tx, ty, bounds)
+    assert got.dtype == torch.float32 and got.shape == (k, p, q)
+    jk = jgram.xty_folds(jx, jy, tuple(bounds), block_n=128, block_p=128,
+                         interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jk), **_tol(dtype))
+    # Against the f64 oracle of the reference's own test.
+    x64 = np.asarray(jx, np.float64)
+    y64 = np.asarray(jy, np.float64)
+    want = np.stack([x64[lo:hi].T @ y64[lo:hi] for lo, hi in bounds])
+    np.testing.assert_allclose(got.numpy(), want, **_tol(dtype))
+
+
+def test_xty_folds_empty_and_ragged_folds_match_per_fold_ref():
+    _, _, tx, ty = _inputs(7, (150, 33), (150, 17), "float32")
+    bounds = [(0, 7), (7, 7), (7, 100), (100, 101), (101, 150)]
+    got = tops.xty_folds(tx, ty, bounds)
+    for f, (lo, hi) in enumerate(bounds):
+        np.testing.assert_allclose(
+            got[f].numpy(), np.asarray(jref.xty(jnp.asarray(tx[lo:hi].numpy()),
+                                                jnp.asarray(ty[lo:hi].numpy()))),
+            **_tol("float32"))
+    assert not got[1].any()
+
+
+def test_ops_route_cpu_tensors_to_plain_versions_without_launching():
+    _, _, tx, ty = _inputs(3, (40, 8), (40, 5), "float32")
+    tgram.reset_launches()
+    tops.xty(tx, ty)
+    tops.gram(tx)
+    tops.xty_folds(tx, ty, [(0, 20), (20, 40)])
+    assert tgram.LAUNCHES == {"xty": 0, "xty_folds": 0}
+    assert tops.kernel_tier_auto("cpu") is False
+    assert tops.kernel_tier_auto(torch.device("cuda")) is True
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
+    x = torch.zeros(6, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgram.xty(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgram.xty_folds(x, x, [(0, 6)])
+    with pytest.raises(ValueError, match="contiguous"):
+        tgram._check_bounds([(0, 2), (3, 6)], 6)
+    with pytest.raises(ValueError, match="covering"):
+        tgram._check_bounds([(0, 5)], 6)
+    assert tgram._check_bounds([(0, 0), (0, 6)], 6) == [(0, 0), (0, 6)]
+    # The kernel takes the bounds by value, for at most 64 folds.
+    assert len(tgram._check_bounds([(i, i + 1) for i in range(64)], 64)) == 64
+    with pytest.raises(ValueError, match="at most 64"):
+        tgram._check_bounds([(i, i + 1) for i in range(65)], 65)
+
+
+def test_kernels_gram_module_imports_without_nvcc():
+    # Importing builds nothing: nvcc is looked for only at the first launch.
+    code = ("import sys, repro_torch.kernels.gram as g, "
+            "repro_torch.kernels._build as b\n"
+            "assert b.load.cache_info().currsize == 0\n"
+            "assert 'triton' not in sys.modules\n"
+            "print(b.library_path().name)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="/nonexistent",
+               CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("librepro_kernels_")
+    b = importlib.import_module("repro_torch.kernels._build")
+    assert b.BUILD_DIR == ROOT / "build" / "kernels"
+    assert "arch=compute_90a,code=sm_90a" in b.NVCC_FLAGS
+
+
+def test_library_name_follows_the_sources(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    _build._sources.cache_clear()
+    try:
+        first = _build.library_path()
+        (src / "a.cu").write_text("// two\n")
+        assert _build.library_path() != first
+    finally:
+        _build._sources.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernels_match_plain_versions(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(1037, 255, device="cuda", generator=g).to(dt)
+    y = torch.randn(1037, 391, device="cuda", generator=g).to(dt)
+    bounds = jfoldstats.fold_bounds(1037, 5)
+    tgram.reset_launches()
+    got = tgram.xty_folds(x, y, bounds)
+    want = tref.xty_folds(x, y, bounds)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 *
+                               want.abs().max().item())
+    got = tgram.xty(x, y)
+    torch.testing.assert_close(got, tref.xty(x, y), rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    assert tgram.LAUNCHES == {"xty": 1, "xty_folds": 1}

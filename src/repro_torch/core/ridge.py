@@ -5,7 +5,8 @@ downdated Gram of every split and the full-data Gram with
 ``torch.linalg.eigh``; the dual path (``n < p``) factorises blocks of one
 ``K = XXᵀ``.  The λ sweep stays a diagonal rescale in the eigenbasis, and
 the r² CV score uses the trace identity so no per-λ prediction is
-materialised.  With ``use_pallas`` the cross-Gram products go through the
+materialised.  ``ridge_cv_from_stats`` runs the primal CV on streamed fold
+statistics alone, scoring each split from its sufficient statistics.  With ``use_pallas`` the cross-Gram products go through the
 CUDA kernels (``kernels.ops``), without it through their plain versions
 (``kernels.ref``); the remaining large products are plain ``torch.matmul``
 in f32, as the reference leaves them to XLA.
@@ -250,6 +251,44 @@ def ridge_cv(X: torch.Tensor, Y: torch.Tensor,
     if cfg.resolve_method(n, p) == "eigh":
         return _ridge_cv_primal(X, Y, cfg)
     return _ridge_cv_dual(X, Y, cfg)
+
+
+def ridge_cv_from_stats(stats: foldstats.FoldStats,
+                        cfg: RidgeCVConfig = RidgeCVConfig()
+                        ) -> RidgeCVResult:
+    """Fit the CV'd ridge from pre-accumulated fold statistics alone.
+
+    The out-of-core entry point: ``stats`` may come from
+    ``foldstats.compute_chunked`` over row batches that never coexist in
+    device memory.  Validation scores come from sufficient statistics
+    (``foldstats.validation_scores_from_stats``), so no validation rows are
+    needed — primal/eigh only, since the dual kernel is an n×n object that
+    defeats the point of streaming rows.  λ selection and refit are
+    ``_ridge_cv_primal``'s.
+    """
+    if cfg.method == "dual":
+        raise ValueError("ridge_cv_from_stats is primal-only: the dual "
+                         "kernel XXᵀ cannot be built from streamed row "
+                         "statistics")
+    p = stats.G.shape[1]
+    device = stats.G.device
+    eye = cfg.jitter * torch.eye(p, dtype=torch.float32, device=device)
+    lams = _lambda_grid(cfg, device)
+    per_lambda_scores = []
+    for f in range(stats.n_folds):
+        G_tr, C_tr = stats.train(f)
+        evals, Q = torch.linalg.eigh(G_tr + eye)
+        del G_tr
+        per_lambda_scores.append(foldstats.validation_scores_from_stats(
+            stats, f, Q, evals, C_tr, lams, cfg.scoring))
+        del Q
+    cv_scores = torch.stack(per_lambda_scores).mean(0)              # (r,)
+    best = torch.argmax(cv_scores)
+    evals, Q = torch.linalg.eigh(stats.G_total + eye)
+    factors = RidgeFactors(basis=Q, evals=evals, primal=True)
+    W = solve(factors, stats.C_total, lams[best])
+    return RidgeCVResult(weights=W, best_lambda=lams[best], best_index=best,
+                         cv_scores=cv_scores)
 
 
 def predict(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

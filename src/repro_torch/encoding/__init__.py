@@ -9,6 +9,14 @@
     state = pipeline.run(X, Y)            # detrend → split → fit → evaluate
     print(state.evaluation.mean_r, state.evaluation.significant)
 
+Out of core, the rows live in a ``RunStore`` and stream chunk by chunk:
+
+    from repro_torch.data.store import RunStore
+    store = RunStore.open("subject-store")
+    state = pipeline.run_store(store, chunk_rows=8192)  # standardize → fit
+    enc = BrainEncoder(device_memory_budget=4 << 30).fit(store=store)
+    print(enc.report_.decision.method, enc.stream_stats_["chunks"])
+
 Everything runs on CUDA unless ``device="cpu"`` is passed.
 """
 from repro_torch.encoding import dispatch, pipeline  # noqa: F401

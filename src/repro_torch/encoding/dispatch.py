@@ -2,9 +2,10 @@
 
 Port of ``repro/encoding/dispatch.py`` for the plans the port runs: the
 single-shard ``ridge`` solver, primal eigh when ``n >= p`` and dual
-otherwise.  Every other plan the reference can choose — MOR, B-MOR, dual
-B-MOR, banded, and the streamed ``chunked``/``colblocked`` tiers — raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  The
+otherwise, and the row-streamed ``chunked`` tier when the resident set
+exceeds ``device_memory_budget``.  Every other plan the reference can
+choose — MOR, B-MOR, dual B-MOR, banded, and the ``colblocked`` tier —
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.  The
 decision fields and the plan's rationale match the reference's for the
 same inputs; the kernel-tier clause names the CUDA kernels.
 """
@@ -25,7 +26,6 @@ _NOT_PORTED = {
     "bmor": "queue 1, item 9 (multi-device)",
     "bmor_dual": "queue 1, item 9 (multi-device)",
     "banded": "queue 1, item 9 (banded ridge)",
-    "chunked": "queue 1, item 6 (streamed fit)",
     "colblocked": "queue 1, item 7 (whole-brain column blocks)",
 }
 
@@ -35,7 +35,7 @@ class DispatchDecision:
     """The resolved execution plan, with the model cost that justified it."""
 
     solver: str              # "ridge" (the only solver the port runs yet)
-    method: str              # "eigh" | "dual"
+    method: str              # "eigh" | "dual" | "chunked" (row streaming)
     data_shards: int
     target_shards: int
     predicted_cost: float    # §3 fp-mult count on the critical path
@@ -63,6 +63,27 @@ def estimated_resident_bytes(n: int, p: int, t: int,
     return n * (p + t_shard) * itemsize
 
 
+def _chunked_decision(cfg: EncoderConfig, w: RidgeWorkload, resident: int,
+                      device_count: int) -> DispatchDecision:
+    """Pin the streamed fold-statistics path (out-of-core regime)."""
+    c_d = cfg.data_shards or device_count
+    cost = (complexity.t_w(w) +
+            complexity.t_m(w) + complexity.t_w_folded(w) / max(c_d, 1))
+    overlap = (f"double-buffered chunk prefetch (depth "
+               f"{cfg.prefetch_depth})" if cfg.prefetch
+               else "prefetch off (serial read→accumulate)")
+    return DispatchDecision(
+        solver="ridge", method="chunked", data_shards=c_d, target_shards=1,
+        predicted_cost=cost,
+        rationale=f"resident set n·p + n·t_shard = {resident / 2**20:.1f} MB "
+                  f"exceeds device_memory_budget = "
+                  f"{cfg.device_memory_budget / 2**20:.1f} MB → streamed "
+                  f"fold-statistics accumulation over {c_d} row shard(s), "
+                  f"chunk_rows={cfg.chunk_rows}, {overlap} (only the "
+                  f"(k, p, p+t) sufficient statistics and the staging "
+                  f"buffers stay resident)")
+
+
 def chunked_stats_bytes(n_folds: int, p: int, t: int,
                         itemsize: int = 4) -> int:
     """Footprint of the accumulated fold statistics ``k·p·(p + t)``."""
@@ -77,7 +98,8 @@ def _kernel_tier(cfg: EncoderConfig, device: torch.device
         why = ("pinned on by config" if cfg.use_pallas is True
                else "auto: CUDA device")
         return True, (f"kernel tier: CUDA ON ({why}; hand-written "
-                      f"xty_folds/xty cross-Gram kernels)")
+                      f"xty_folds/xty cross-Gram kernels, xty_folds_masked "
+                      f"chunk updates)")
     why = ("pinned off by config" if cfg.use_pallas is False
            else f"auto: device {device.type!r} has no CUDA kernels")
     return False, f"kernel tier: CUDA OFF ({why}; plain kernels.ref products)"
@@ -131,7 +153,9 @@ def _resolve_plan(cfg: EncoderConfig, n: int, p: int, t: int,
                     f"{cfg.device_memory_budget} B but the pinned "
                     f"method/bands ({cfg.method!r}/{cfg.bands}) cannot "
                     f"stream — the streaming paths are primal/eigh only")
-            raise _not_ported("colblocked" if colblocked else "chunked")
+            if colblocked:
+                raise _not_ported("colblocked")
+            return _chunked_decision(cfg, w, resident, device_count)
         if streamable and colblocked:
             raise _not_ported("colblocked")
 

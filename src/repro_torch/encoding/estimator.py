@@ -1,9 +1,12 @@
 """``BrainEncoder`` — the scikit-learn-style facade over the ridge solver.
 
-Port of ``repro/encoding/estimator.py`` for the in-memory single-device
-path: ``fit(X, Y)`` resolves the plan through ``encoding.dispatch`` and runs
-``core.ridge.ridge_cv``; ``predict``/``score``/``evaluate`` follow.  The
-encoder runs on CUDA unless constructed with ``device="cpu"``.
+Port of ``repro/encoding/estimator.py`` for one device: ``fit(X, Y)``
+resolves the plan through ``encoding.dispatch`` and runs
+``core.ridge.ridge_cv``; ``fit(store=)`` and ``fit_chunks`` stream the rows
+of a ``RunStore`` (or any ordered chunk source) through
+``foldstats.FoldStatsAccumulator`` and solve from the statistics alone
+(``ridge.ridge_cv_from_stats``); ``predict``/``score``/``evaluate`` follow.
+The encoder runs on CUDA unless constructed with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import ridge, scoring
+from repro_torch.core import foldstats, ridge, scoring
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.encoding.config import EncoderConfig
 from repro_torch.encoding.dispatch import DispatchDecision, resolve
@@ -105,7 +108,9 @@ class BrainEncoder:
     >>> BrainEncoder(device="cpu", n_folds=3)     # plain versions on the CPU
 
     Keyword overrides are ``EncoderConfig`` fields.  Attributes set by
-    ``fit``: ``report_`` (an ``EncodingReport``), ``weights_``.
+    ``fit``: ``report_`` (an ``EncodingReport``), ``weights_``, and after a
+    streamed fit ``stream_stats_`` (chunks, bytes staged, reader/compute
+    stall seconds, signatures seen by the chunk update).
     """
 
     def __init__(self, config: EncoderConfig | None = None,
@@ -118,10 +123,33 @@ class BrainEncoder:
         self.report_: EncodingReport | None = None
         # Set by pipeline.standardize/fit: the fitted per-column μ/σ.
         self.standardizer_ = None
+        # Set by the streamed fit paths: overlap telemetry of the chunk
+        # pipeline.  None for in-memory fits.
+        self.stream_stats_: dict | None = None
 
-    def fit(self, X, Y) -> "BrainEncoder":
-        """Fit from in-memory arrays (numpy or tensors), moved to the
-        encoder's device."""
+    def fit(self, X=None, Y=None, *, store=None,
+            chunk_rows: int | None = None) -> "BrainEncoder":
+        """Fit from in-memory arrays, or out-of-core from a ``RunStore``.
+
+        ``fit(X, Y)`` takes numpy arrays or tensors, moved to the encoder's
+        device.  ``fit(store=run_store)`` resolves dispatch on the store's
+        ``(n, p, t)``: when the resident-set estimate exceeds
+        ``config.device_memory_budget`` the decision pins
+        ``method="chunked"`` and the rows stream from the memory-mapped
+        shards — ``(n, p)`` is never materialised; otherwise the store is
+        loaded once and routed through the ordinary dispatch.
+        """
+        if store is not None:
+            if X is not None or Y is not None:
+                raise ValueError("pass either (X, Y) or store=, not both")
+            self._check_store_folds(store)
+            n, p, t = store.shape
+            decision = resolve(self.config, n, p, t, 1, device=self.device)
+            if decision.method == "chunked":
+                return self._fit_store_chunked(store, decision, chunk_rows)
+            X, Y = store.load()
+        if X is None or Y is None:
+            raise ValueError("fit() needs (X, Y) arrays or store=")
         X = as_tensor(X, self.device)
         Y = as_tensor(Y, self.device)
         n, p = X.shape
@@ -129,6 +157,134 @@ class BrainEncoder:
         decision = resolve(self.config, n, p, t, 1, device=self.device)
         self.report_ = self._fit_ridge(X, Y, decision)
         return self
+
+    def fit_chunks(self, chunks, n_total: int | None = None,
+                   chunk_rows: int | None = None) -> "BrainEncoder":
+        """Out-of-core fit from ordered ``(X_chunk, Y_chunk)`` row batches.
+
+        The chunks (numpy arrays or tensors) stream through a
+        ``foldstats.FoldStatsAccumulator`` — only the ``(k, p, p+t)``
+        sufficient statistics live on the device — and the CV'd solve runs
+        on them alone (``ridge.ridge_cv_from_stats``).  Primal/eigh,
+        single shard.  Chunks must arrive in global row order; the fold
+        split matches ``fit`` on the concatenated rows.
+
+        ``chunks`` may also be a ``RunStore``: it is streamed with
+        ``config.chunk_rows`` (background-prefetched into pinned buffers
+        when ``config.prefetch`` and the encoder is on CUDA) and
+        ``n_total`` is taken from its manifest.
+        """
+        self._check_chunkable()
+        # A source that exposes PrefetchStats (a ChunkPrefetcher handed in
+        # directly) contributes its overlap telemetry to stream_stats_.
+        stream = chunks if hasattr(chunks, "stats") else None
+        if hasattr(chunks, "iter_chunks"):            # RunStore duck-type
+            self._check_store_folds(chunks)
+            n_total = chunks.shape[0]
+            chunk_rows = chunk_rows or self.config.chunk_rows
+            chunks = stream = chunks.iter_chunks(
+                chunk_rows, prefetch=self.config.prefetch,
+                prefetch_depth=self.config.prefetch_depth,
+                pin_memory=self.device.type == "cuda")
+        if n_total is None:
+            raise ValueError("fit_chunks needs n_total for iterator sources")
+        compiles0 = foldstats.chunk_update_compile_count()
+        stats = foldstats.compute_chunked(
+            chunks, n_total, self.config.n_folds, chunk_rows=chunk_rows,
+            use_pallas=self.config.resolve_use_pallas(self.device),
+            device=self.device)
+        self._record_stream_stats([stream] if stream is not None else [],
+                                  compiles0)
+        return self._fit_from_stats(stats, n_total)
+
+    def _check_store_folds(self, store) -> None:
+        """The manifest's fold split is part of the store's data contract:
+        a config that disagrees with it is an error, not a silently
+        different CV."""
+        k = getattr(store, "n_folds", None)
+        if k is not None and k != self.config.n_folds:
+            raise ValueError(
+                f"store manifest records n_folds={k} but the encoder is "
+                f"configured with n_folds={self.config.n_folds} — match "
+                f"EncoderConfig.n_folds to the store (or re-create the "
+                f"store with the intended split)")
+
+    def _check_chunkable(self) -> None:
+        if self.config.solver not in ("auto", "ridge"):
+            raise ValueError(
+                f"fit_chunks supports only the single-shard ridge solver; "
+                f"solver={self.config.solver!r} is pinned — use fit() for "
+                f"B-MOR/MOR/banded semantics")
+        if self.config.method == "dual" or self.config.bands is not None:
+            raise ValueError(
+                "fit_chunks is primal/eigh only (streamed row statistics "
+                "cannot build the dual kernel or per-band refits)")
+
+    def _fit_from_stats(self, stats: foldstats.FoldStats, n_total: int,
+                        decision: DispatchDecision | None = None
+                        ) -> "BrainEncoder":
+        """CV'd solve from accumulated fold statistics alone."""
+        p, t = stats.G.shape[1], stats.C.shape[2]
+        # Statistics-based CV scores lose f32 precision roughly
+        # quadratically in |ȳ|/σ_y; refuse clearly pathological
+        # un-standardized targets instead of returning corrupted scores.
+        mu = stats.ysum.sum(0).cpu().numpy() / n_total
+        var = stats.ysq.sum(0).cpu().numpy() / max(n_total - 1, 1)
+        ratio = float(np.max(np.abs(mu) / np.sqrt(var + 1e-12)))
+        if ratio > 1e3:
+            raise ValueError(
+                f"fit_chunks: target mean/std ratio {ratio:.0f} is too "
+                f"large for statistics-based CV scoring in float32 — "
+                f"standardize the targets first (pipeline.standardize)")
+        cfg = dataclasses.replace(self.config, solver="ridge", method="eigh")
+        if decision is None:
+            decision = resolve(cfg, n_total, p, t, 1, device=self.device)
+        res = ridge.ridge_cv_from_stats(
+            stats, cfg.ridge_cv_config("eigh", device=self.device))
+        self.report_ = EncodingReport(
+            weights=res.weights,
+            best_lambda=res.best_lambda.cpu().numpy()[None],
+            cv_scores=res.cv_scores.cpu().numpy()[None, :],
+            lambdas=self.config.lambdas, decision=decision)
+        return self
+
+    def _fit_store_chunked(self, store, decision: DispatchDecision,
+                           chunk_rows: int | None) -> "BrainEncoder":
+        """Streamed fit on one device (one row shard): the store's rows
+        stream (background-prefetched when ``config.prefetch``, into pinned
+        buffers on CUDA) through the fixed-shape chunk update."""
+        self._check_chunkable()
+        n_total = store.shape[0]
+        chunk_rows = chunk_rows or self.config.chunk_rows
+        stream = store.iter_chunks(chunk_rows, prefetch=self.config.prefetch,
+                                   prefetch_depth=self.config.prefetch_depth,
+                                   pin_memory=self.device.type == "cuda")
+        compiles0 = foldstats.chunk_update_compile_count()
+        stats = foldstats.compute_chunked(
+            stream, n_total, self.config.n_folds, chunk_rows=chunk_rows,
+            use_pallas=decision.use_pallas, device=self.device)
+        self._record_stream_stats([stream], compiles0)
+        return self._fit_from_stats(stats, n_total, decision)
+
+    def _record_stream_stats(self, streams, compiles_before: int) -> None:
+        """Aggregate per-stream prefetch telemetry into ``stream_stats_``
+        (the reference's flat snapshot schema)."""
+        agg = {"schema": "repro.obs/v1", "kind": "stream",
+               "prefetch": bool(self.config.prefetch), "chunks": 0,
+               "bytes_staged": 0, "read_stall_s": 0.0,
+               "compute_stall_s": 0.0,
+               "use_pallas": self.config.resolve_use_pallas(self.device),
+               "compile_count": (foldstats.chunk_update_compile_count()
+                                 - compiles_before)}
+        for stream in streams:
+            st = getattr(stream, "stats", None)
+            if st is None:
+                continue
+            d = st.to_dict()
+            for key in ("chunks", "bytes_staged", "read_stall_s",
+                        "compute_stall_s"):
+                agg[key] += d[key]
+        self.stream_stats_ = agg
 
     @property
     def weights_(self) -> torch.Tensor:

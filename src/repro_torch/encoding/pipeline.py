@@ -1,11 +1,15 @@
 """Composable encoding pipeline: detrend → split → standardize → fit → eval.
 
-Port of ``repro/encoding/pipeline.py`` for in-memory data.  Each stage is a
-plain ``PipelineState → PipelineState`` callable; ``run(X, Y, config)``
+Port of ``repro/encoding/pipeline.py``.  Each stage is a plain
+``PipelineState → PipelineState`` callable; ``run(X, Y, config)``
 reproduces the paper's §2 preprocessing and §4 evaluation end to end on the
-given device (CUDA unless ``device="cpu"``).  ``run_stages`` records each
-stage's wall time in ``state.stage_seconds`` (synchronising a CUDA device
-at each stage boundary).
+given device (CUDA unless ``device="cpu"``).  Out of core,
+``run_store(store, config)`` streams a ``RunStore`` through the two-pass
+standardize + fold-statistics fit (``fit_chunked``) without materialising
+the rows.  ``run_stages`` and ``run_store`` record each stage's wall time
+in ``state.stage_seconds`` (synchronising a CUDA device at each stage
+boundary); ``fit_chunked`` adds its passes as ``fit_chunked.moments``,
+``fit_chunked.stats`` and ``fit_chunked.solve``.
 """
 from __future__ import annotations
 
@@ -52,6 +56,9 @@ class PipelineState:
     Y: torch.Tensor | None
     X_test: torch.Tensor | None = None
     Y_test: torch.Tensor | None = None
+    # Out-of-core source (a RunStore) instead of materialised X/Y: stages
+    # that need the rows stream them chunk by chunk.
+    store: "object | None" = None
     standardizer: Standardizer | None = None
     encoder: BrainEncoder | None = None
     report: EncodingReport | None = None
@@ -121,6 +128,124 @@ def fit(config: EncoderConfig | None = None, *,
     return fit_stage
 
 
+def streaming_moments(chunks, *, device: torch.device | str | None = None
+                      ) -> tuple[torch.Tensor, ...]:
+    """First streaming pass: per-column μ/σ of X and Y over the chunks.
+
+    Returns ``(mu_x, sd_x, mu_y, sd_y)`` as float32 tensors on ``device``,
+    accumulated in float64 (``foldstats.ColumnMoments``), so the streamed
+    fit standardizes like ``standardize()`` does on materialised rows.
+    A closable source is closed on every exit path.
+    """
+    from repro_torch.core.foldstats import ColumnMoments
+
+    mx, my = ColumnMoments(device), ColumnMoments(device)
+    try:
+        for X_c, Y_c in chunks:
+            mx.update(X_c)
+            my.update(Y_c)
+    finally:
+        if hasattr(chunks, "close"):
+            chunks.close()
+    return (mx.mean.float(), mx.std().float(), my.mean.float(),
+            my.std().float())
+
+
+def _on_device(src, device: torch.device, std: Standardizer | None,
+               marks: dict):
+    """Chunks of ``src`` as tensors on ``device``, standardized by ``std``;
+    ``marks["stats_end"]`` is stamped when ``src`` is exhausted (every
+    chunk update has then returned, fenced).  Closes ``src`` on every exit
+    path."""
+    try:
+        for X_c, Y_c in src:
+            X = as_tensor(X_c, device)
+            Y = as_tensor(Y_c, device)
+            if std is not None:
+                X, Y = std.apply_x(X.float()), std.apply_y(Y.float())
+            yield X, Y
+        marks["stats_end"] = time.perf_counter()
+    finally:
+        if hasattr(src, "close"):
+            src.close()
+
+
+def fit_chunked(config: EncoderConfig | None = None, *,
+                chunk_rows: int = 1024, standardize: bool | None = None,
+                device: torch.device | str | None = None,
+                **overrides) -> Stage:
+    """Out-of-core fit stage: stream the training rows in ``chunk_rows``
+    batches through ``BrainEncoder.fit_chunks``.
+
+    Sources, in priority order: ``state.store`` (a ``RunStore`` — rows are
+    memory-mapped and streamed, ``(n, p)`` is never materialised) or the
+    in-memory ``state.X``/``state.Y`` (sliced lazily, standardize-free by
+    default so it matches a plain ``fit()`` on the same rows).
+
+    ``standardize`` defaults to True for a store source.  When on, the
+    stage makes two streaming passes: a ``ColumnMoments`` pass for the
+    per-column μ/σ of X and Y, then the fold-statistics pass over the
+    chunks standardized on the device.  Both passes over a store are
+    background-prefetched when ``config.prefetch`` is on (into pinned
+    buffers on CUDA).
+    """
+    def fit_chunked_stage(s: PipelineState) -> PipelineState:
+        encoder = BrainEncoder(config, device=device, **overrides)
+        dev = encoder.device
+        if s.store is not None:
+            encoder._check_store_folds(s.store)
+            n = s.store.shape[0]
+            cfg = encoder.config
+            make_chunks = lambda: s.store.iter_chunks(       # noqa: E731
+                chunk_rows, prefetch=cfg.prefetch,
+                prefetch_depth=cfg.prefetch_depth,
+                pin_memory=dev.type == "cuda")
+        else:
+            if s.X is None:
+                raise ValueError("fit_chunked needs state.store or state.X")
+            n = s.X.shape[0]
+            make_chunks = lambda: (                                # noqa: E731
+                (s.X[lo:lo + chunk_rows], s.Y[lo:lo + chunk_rows])
+                for lo in range(0, n, chunk_rows))
+        do_std = standardize if standardize is not None \
+            else s.store is not None
+
+        def stamp(name: str, since: float) -> float:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            s.stage_seconds[f"fit_chunked.{name}"] = now - since
+            return now
+
+        t0 = time.perf_counter()
+        if do_std:
+            mu_x, sd_x, mu_y, sd_y = streaming_moments(make_chunks(),
+                                                       device=dev)
+            s.standardizer = Standardizer(mu_x=mu_x, sd_x=sd_x,
+                                          mu_y=mu_y, sd_y=sd_y)
+            t0 = stamp("moments", t0)
+        source = make_chunks()
+        marks: dict[str, float] = {}
+        s.encoder = encoder.fit_chunks(
+            _on_device(source, dev, s.standardizer if do_std else None,
+                       marks),
+            n_total=n, chunk_rows=chunk_rows)
+        s.stage_seconds["fit_chunked.stats"] = marks["stats_end"] - t0
+        stamp("solve", marks["stats_end"])
+        # The device generator hides the prefetcher from fit_chunks; fold
+        # the fit pass's overlap telemetry back into stream_stats_.
+        src_stats = getattr(source, "stats", None)
+        if src_stats is not None:
+            s.encoder.stream_stats_.update(
+                chunks=src_stats.chunks, bytes_staged=src_stats.bytes_staged,
+                read_stall_s=src_stats.read_stall_s,
+                compute_stall_s=src_stats.compute_stall_s)
+        s.encoder.standardizer_ = s.standardizer
+        s.report = s.encoder.report_
+        return s
+    return fit_chunked_stage
+
+
 def evaluate(n_perms: int = 10, seed: int = 1,
              on_train: bool = False) -> Stage:
     """Held-out Pearson r / R² + null-permutation control (§4.1–4.2).
@@ -148,7 +273,12 @@ def evaluate(n_perms: int = 10, seed: int = 1,
 def run_stages(X, Y, stages: Sequence[Stage], *,
                device: torch.device | str | None = None) -> PipelineState:
     dev = resolve_device(device)
-    state = PipelineState(X=as_tensor(X, dev), Y=as_tensor(Y, dev))
+    return _run(PipelineState(X=as_tensor(X, dev), Y=as_tensor(Y, dev)),
+                stages, dev)
+
+
+def _run(state: PipelineState, stages: Sequence[Stage],
+         dev: torch.device) -> PipelineState:
     for stage in stages:
         t0 = time.perf_counter()
         state = stage(state)
@@ -180,3 +310,21 @@ def run(X, Y, config: EncoderConfig | None = None, *,
     """One-call pipeline: ``run(X, Y, EncoderConfig(...), device=...)``."""
     return run_stages(X, Y, default_stages(config, device=device, **kwargs),
                       device=device)
+
+
+def run_store(store, config: EncoderConfig | None = None, *,
+              chunk_rows: int = 8192, standardize: bool = True,
+              device: torch.device | str | None = None,
+              **overrides) -> PipelineState:
+    """One-call out-of-core pipeline: stream a ``RunStore`` through the
+    two-pass standardize + fold-statistics fit without materialising rows.
+
+    Held-out evaluation needs rows that fit in memory: evaluate a separate
+    test set with ``state.encoder.evaluate`` after applying
+    ``state.standardizer``.
+    """
+    dev = resolve_device(device)
+    return _run(PipelineState(X=None, Y=None, store=store),
+                [fit_chunked(config, chunk_rows=chunk_rows,
+                             standardize=standardize, device=dev,
+                             **overrides)], dev)

@@ -90,6 +90,11 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ctypes.POINTER(i64), ptr, i64, i64, i32, i32,
                        ptr]
         fn.restype = i32
+    for name in ("repro_xty_folds_masked_f32", "repro_xty_folds_masked_bf16"):
+        fn = getattr(lib, name)
+        # x, z, w, out, m, p, q, s, device, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32, ptr]
+        fn.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,9 +1,15 @@
-// Per-fold cross-Gram on Hopper: out[f] = X[lo_f:hi_f]ᵀ · Y[lo_f:hi_f].
+// Cross-Gram kernels on Hopper, all f32-accumulated:
+//   out[f] = X[lo_f:hi_f]ᵀ · Y[lo_f:hi_f]          (xty_folds, xty)
+//   out[s] = (X · diag(w[:, s]))ᵀ · Z              (xty_folds_masked)
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/gram.py:
 //   * xty_folds (the per-fold [G | C] statistics of core/foldstats.py), and
 //   * xty (XᵀY; the dual path's XXᵀ and Xᵀα), which is the one-fold case
-//     bounds = {(0, n)} of the same kernel.
+//     bounds = {(0, n)} of the same kernel;
+//   * xty_folds_masked (every chunk update of the streamed fit,
+//     foldstats._FixedShapeUpdate): per-slot row weights w (m, s), in
+//     practice a one-hot of each row's fold, applied to x at the load, so
+//     the masked (s, m, p) operand the XLA formula builds never exists.
 //
 // What bounds it on this card: f32 arithmetic.  The reference accumulates in
 // f32 (preferred_element_type), so the port uses no TF32 tensor-core `mma`;
@@ -32,6 +38,15 @@
 //     the product of two bf16 values is exact in f32.
 //   * Every offset is int64: at the main path's shapes n·(p+t) is ~1.2e9
 //     elements and the (k, p, q) output ~1.4e9.
+//   * The masked kernel shares the row loop: block (j, i, slot) sweeps all
+//     m rows of the chunk and scales each staged x row by w[row, slot] in
+//     f32 (the mask is a device operand, read once per row and stage).  At
+//     the streamed fit's shapes (m = 8,192, p = 16,384, q = 16,828, s = 2)
+//     that is 2·s·m·p·q = 9.0e12 FLOPs against ~0.6 GB read: bound by
+//     operations.  All-zero stages are not skipped: the reference keeps
+//     0·Inf and 0·NaN rows as NaN, and so does this kernel.  Skipping them
+//     (roughly halving the work of a chunk that straddles two folds) is
+//     left to a later redesign.
 // Not done yet (later work): wgmma/TMA pipelines are bf16/TF32-only on the
 // tensor cores and do not apply to full f32; a split over rows for the
 // narrow dual XXᵀ (n×n output from p = 16,384 rows) would fill more SMs.
@@ -85,72 +100,80 @@ __device__ __forceinline__ void store_stage(float (*dst)[kBlockI], int tid,
   for (int e = 0; e < 4; ++e) dst[r][lane + 32 * e] = reg[e];
 }
 
-// grid = (ceil(q / 128), ceil(p / 128), k); block = 256 threads.
+// Scales each thread's staged x values by its row's slot weight w[row, slot]
+// (f32), the mask of the masked kernel.  Rows past row_end were loaded as 0.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    xty_folds_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                     const FoldBounds bounds, float* __restrict__ out,
-                     long long p, long long q) {
-  __shared__ __align__(16) float xs[2][kStageRows][kBlockI];
-  __shared__ __align__(16) float ys[2][kStageRows][kBlockJ];
+__device__ __forceinline__ void scale_stage(const T* __restrict__ w,
+                                            long long ws, long long slot,
+                                            long long row0, long long row_end,
+                                            int tid, float (&reg)[4]) {
+  const long long row = row0 + (tid >> 5);
+  const float wv = row < row_end ? to_f32(w[row * ws + slot]) : 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) reg[e] *= wv;
+}
 
+// Accumulates rows [lo, hi) of the (128 × 128) output tile at (i0, j0) into
+// acc: acc += (x[lo:hi, i0:i0+128] · w)ᵀ · y[lo:hi, j0:j0+128].  With kMasked
+// each x row is first scaled by w[row, slot] (w has ws columns).
+template <typename T, bool kMasked>
+__device__ __forceinline__ void accumulate_rows(
+    const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ w,
+    long long ws, long long slot, long long lo, long long hi, long long i0,
+    long long j0, long long p, long long q, float (*xs)[kStageRows][kBlockI],
+    float (*ys)[kStageRows][kBlockJ], float (&acc)[8][8]) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;   // column group of the 8×8 micro-tile
   const int ty = tid >> 4;   // row group
-  const long long fold = blockIdx.z;
-  const long long i0 = static_cast<long long>(blockIdx.y) * kBlockI;
-  const long long j0 = static_cast<long long>(blockIdx.x) * kBlockJ;
-  const long long lo = bounds.v[2 * fold];
-  const long long hi = bounds.v[2 * fold + 1];
-
-  float acc[8][8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
-
-  if (lo < hi) {
-    float rx[4], ry[4];
-    load_stage(x, p, lo, hi, i0, p, tid, rx);
-    load_stage(y, q, lo, hi, j0, q, tid, ry);
-    store_stage(xs[0], tid, rx);
-    store_stage(ys[0], tid, ry);
-    __syncthreads();
-    int buf = 0;
-    for (long long r0 = lo; r0 < hi; r0 += kStageRows) {
-      const bool has_next = r0 + kStageRows < hi;
-      if (has_next) {
-        load_stage(x, p, r0 + kStageRows, hi, i0, p, tid, rx);
-        load_stage(y, q, r0 + kStageRows, hi, j0, q, tid, ry);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kStageRows; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&xs[buf][kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&ys[buf][kk][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&ys[buf][kk][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int m = 0; m < 8; ++m)
-#pragma unroll
-          for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-      }
-      if (has_next) {
-        // The other buffer was last read before the previous barrier.
-        store_stage(xs[buf ^ 1], tid, rx);
-        store_stage(ys[buf ^ 1], tid, ry);
-      }
-      __syncthreads();
-      buf ^= 1;
+  float rx[4], ry[4];
+  load_stage(x, p, lo, hi, i0, p, tid, rx);
+  if (kMasked) scale_stage(w, ws, slot, lo, hi, tid, rx);
+  load_stage(y, q, lo, hi, j0, q, tid, ry);
+  store_stage(xs[0], tid, rx);
+  store_stage(ys[0], tid, ry);
+  __syncthreads();
+  int buf = 0;
+  for (long long r0 = lo; r0 < hi; r0 += kStageRows) {
+    const bool has_next = r0 + kStageRows < hi;
+    if (has_next) {
+      load_stage(x, p, r0 + kStageRows, hi, i0, p, tid, rx);
+      if (kMasked) scale_stage(w, ws, slot, r0 + kStageRows, hi, tid, rx);
+      load_stage(y, q, r0 + kStageRows, hi, j0, q, tid, ry);
     }
+#pragma unroll
+    for (int kk = 0; kk < kStageRows; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&xs[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&ys[buf][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&ys[buf][kk][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
+    }
+    if (has_next) {
+      // The other buffer was last read before the previous barrier.
+      store_stage(xs[buf ^ 1], tid, rx);
+      store_stage(ys[buf ^ 1], tid, ry);
+    }
+    __syncthreads();
+    buf ^= 1;
   }
+}
 
-  // Every block writes its whole (masked) tile, so an empty fold yields
-  // exact zeros and the wrapper may allocate the output uninitialised.
-  float* o = out + fold * p * q;
+// Writes the whole (masked) tile, so an empty row range yields exact zeros
+// and the wrapper may allocate the output uninitialised.
+__device__ __forceinline__ void store_tile(float* __restrict__ o,
+                                           long long i0, long long j0,
+                                           long long p, long long q,
+                                           const float (&acc)[8][8]) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
   const bool vec = (q & 3) == 0;
 #pragma unroll
   for (int m = 0; m < 8; ++m) {
@@ -173,6 +196,54 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// grid = (ceil(q / 128), ceil(p / 128), k); block = 256 threads.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    xty_folds_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                     const FoldBounds bounds, float* __restrict__ out,
+                     long long p, long long q) {
+  __shared__ __align__(16) float xs[2][kStageRows][kBlockI];
+  __shared__ __align__(16) float ys[2][kStageRows][kBlockJ];
+  const long long fold = blockIdx.z;
+  const long long i0 = static_cast<long long>(blockIdx.y) * kBlockI;
+  const long long j0 = static_cast<long long>(blockIdx.x) * kBlockJ;
+  const long long lo = bounds.v[2 * fold];
+  const long long hi = bounds.v[2 * fold + 1];
+  float acc[8][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
+  if (lo < hi)
+    accumulate_rows<T, false>(x, y, nullptr, 0, 0, lo, hi, i0, j0, p, q, xs,
+                              ys, acc);
+  store_tile(out + fold * p * q, i0, j0, p, q, acc);
+}
+
+// grid = (ceil(q / 128), ceil(p / 128), s); block = 256 threads.  Block
+// (j, i, slot) sweeps all m rows with x scaled by the slot's column of w.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    xty_folds_masked_kernel(const T* __restrict__ x, const T* __restrict__ z,
+                            const T* __restrict__ w, float* __restrict__ out,
+                            long long m, long long p, long long q,
+                            long long s) {
+  __shared__ __align__(16) float xs[2][kStageRows][kBlockI];
+  __shared__ __align__(16) float zs[2][kStageRows][kBlockJ];
+  const long long slot = blockIdx.z;
+  const long long i0 = static_cast<long long>(blockIdx.y) * kBlockI;
+  const long long j0 = static_cast<long long>(blockIdx.x) * kBlockJ;
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  if (m > 0)
+    accumulate_rows<T, true>(x, z, w, s, slot, 0, m, i0, j0, p, q, xs, zs,
+                             acc);
+  store_tile(out + slot * p * q, i0, j0, p, q, acc);
+}
+
 template <typename T>
 int launch(const void* x, const void* y, const long long* bounds, void* out,
            long long p, long long q, int k, int device, void* stream) {
@@ -188,6 +259,23 @@ int launch(const void* x, const void* y, const long long* bounds, void* out,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       fb, static_cast<float*>(out), p, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_masked(const void* x, const void* z, const void* w, void* out,
+                  long long m, long long p, long long q, long long s,
+                  int device, void* stream) {
+  if (s < 1 || s > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((q + kBlockJ - 1) / kBlockJ),
+                  static_cast<unsigned>((p + kBlockI - 1) / kBlockI),
+                  static_cast<unsigned>(s));
+  xty_folds_masked_kernel<T><<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(z),
+      static_cast<const T*>(w), static_cast<float*>(out), m, p, q, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,6 +298,24 @@ int repro_xty_folds_bf16(const void* x, const void* y,
                          void* out, long long p, long long q, int k,
                          int device, void* stream) {
   return launch<__nv_bfloat16>(x, y, bounds, out, p, q, k, device, stream);
+}
+
+// x: (m, p), z: (m, q), w: (m, s) slot weights, all row-major and of one
+// dtype; out: (s, p, q) f32 with out[k] = (x · w[:, k])ᵀ z.  Launches on
+// `stream` and returns the cudaGetLastError() code of the launch.
+int repro_xty_folds_masked_f32(const void* x, const void* z, const void* w,
+                               void* out, long long m, long long p,
+                               long long q, long long s, int device,
+                               void* stream) {
+  return launch_masked<float>(x, z, w, out, m, p, q, s, device, stream);
+}
+
+int repro_xty_folds_masked_bf16(const void* x, const void* z, const void* w,
+                                void* out, long long m, long long p,
+                                long long q, long long s, int device,
+                                void* stream) {
+  return launch_masked<__nv_bfloat16>(x, z, w, out, m, p, q, s, device,
+                                      stream);
 }
 
 const char* repro_cuda_error_string(int code) {

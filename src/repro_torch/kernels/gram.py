@@ -1,7 +1,8 @@
 """Checked launchers of the CUDA cross-Gram kernel (``csrc/gram.cu``).
 
 Port of ``repro/kernels/gram.py``: ``xty_folds`` (per-fold ``X_fᵀY_f`` in
-one row pass) and ``xty`` (``XᵀY``, the one-fold case of the same kernel).
+one row pass), ``xty`` (``XᵀY``, the one-fold case of the same kernel) and
+``xty_folds_masked`` (per-slot ``(X·w_s)ᵀZ``, the streamed chunk update).
 Each wrapper takes CUDA tensors only, checks them, allocates the f32 output,
 launches on the current stream, raises on a launch error and counts the
 launch in ``LAUNCHES``.  The build happens at the first launch, so this
@@ -22,7 +23,8 @@ _MAX_GRID_YZ = 65535
 _MAX_FOLDS = 64      # the kernel takes the fold bounds by value (kMaxFolds)
 
 # Launches per kernel since the last ``reset_launches()``.
-LAUNCHES: dict[str, int] = {"xty": 0, "xty_folds": 0}
+LAUNCHES: dict[str, int] = {"xty": 0, "xty_folds": 0,
+                           "xty_folds_masked": 0}
 
 
 def reset_launches() -> None:
@@ -30,8 +32,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_operands(x: torch.Tensor, y: torch.Tensor) -> None:
-    for name, t in (("x", x), ("y", y)):
+def _check_operands(x: torch.Tensor, y: torch.Tensor,
+                    **more: torch.Tensor) -> None:
+    """CUDA, 2-D, contiguous, one device and dtype (f32 or bf16), one row
+    count: what every kernel here takes."""
+    ops = {"x": x, "y": y, **more}
+    for name, t in ops.items():
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got "
                              f"{getattr(t, 'device', type(t))}")
@@ -40,14 +46,16 @@ def _check_operands(x: torch.Tensor, y: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (row-major); pass "
                              f"{name}.contiguous()")
-    if x.device != y.device:
-        raise ValueError(f"x on {x.device} but y on {y.device}")
-    if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x and y must share dtype float32 or bfloat16, got "
-                         f"{x.dtype} and {y.dtype}")
-    if x.shape[0] != y.shape[0]:
-        raise ValueError(f"row counts differ: x {tuple(x.shape)}, "
-                         f"y {tuple(y.shape)}")
+    desc = ", ".join(f"{k} {tuple(t.shape)} {t.dtype} on {t.device}"
+                     for k, t in ops.items())
+    if len({t.device for t in ops.values()}) != 1:
+        raise ValueError(f"operands on different devices: {desc}")
+    if (len({t.dtype for t in ops.values()}) != 1
+            or x.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"operands must share dtype float32 or bfloat16: "
+                         f"{desc}")
+    if len({t.shape[0] for t in ops.values()}) != 1:
+        raise ValueError(f"row counts differ: {desc}")
 
 
 def _check_bounds(bounds: Sequence[tuple[int, int]], n: int
@@ -71,9 +79,7 @@ def _launch(name: str, x: torch.Tensor, y: torch.Tensor,
     out = torch.empty((k, p, q), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    if -(-p // _TILE) > _MAX_GRID_YZ:
-        raise ValueError(f"p={p} exceeds the kernel's grid limit "
-                         f"{_MAX_GRID_YZ * _TILE}")
+    _check_grid(p)
     lib = _build.load()
     fn = (lib.repro_xty_folds_f32 if x.dtype == torch.float32
           else lib.repro_xty_folds_bf16)
@@ -83,13 +89,23 @@ def _launch(name: str, x: torch.Tensor, y: torch.Tensor,
         rc = fn(x.data_ptr(), y.data_ptr(), flat, out.data_ptr(), p,
                 q, k, torch.cuda.current_device(),
                 torch.cuda.current_stream().cuda_stream)
+    _check_rc(lib, rc, name, f"x {tuple(x.shape)}, y {tuple(y.shape)}, "
+                             f"k={k}, {x.dtype}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _check_grid(p: int) -> None:
+    if -(-p // _TILE) > _MAX_GRID_YZ:
+        raise ValueError(f"p={p} exceeds the kernel's grid limit "
+                         f"{_MAX_GRID_YZ * _TILE}")
+
+
+def _check_rc(lib, rc: int, name: str, what: str) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg}) at x {tuple(x.shape)}, y "
-                           f"{tuple(y.shape)}, k={k}, {x.dtype}")
-    LAUNCHES[name] += 1
-    return out
+                           f"({msg}) at {what}")
 
 
 def xty_folds(x: torch.Tensor, y: torch.Tensor,
@@ -113,3 +129,36 @@ def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def gram(x: torch.Tensor) -> torch.Tensor:
     """``XᵀX`` (p, p) f32."""
     return xty(x, x)
+
+
+def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
+                     onehot: torch.Tensor) -> torch.Tensor:
+    """Per-slot masked ``out[s] = (x · onehot[:, s])ᵀ z`` in one launch.
+
+    x: (m, p), z: (m, q), onehot: (m, s) slot weights (any values; the
+    streamed fit passes each row's fold one-hot), all CUDA, contiguous,
+    float32 or bfloat16 alike → (s, p, q) float32.  The weights scale x in
+    f32 inside the kernel; the masked operand is never materialised.
+    """
+    _check_operands(x, z, onehot=onehot)
+    m, p = x.shape
+    q, s = z.shape[1], onehot.shape[1]
+    if not 1 <= s <= _MAX_GRID_YZ:
+        raise ValueError(f"onehot has {s} slots: the kernel takes 1 to "
+                         f"{_MAX_GRID_YZ}")
+    out = torch.empty((s, p, q), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    _check_grid(p)
+    lib = _build.load()
+    fn = (lib.repro_xty_folds_masked_f32 if x.dtype == torch.float32
+          else lib.repro_xty_folds_masked_bf16)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), z.data_ptr(), onehot.data_ptr(), out.data_ptr(),
+                m, p, q, s, torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream)
+    _check_rc(lib, rc, "xty_folds_masked",
+              f"x {tuple(x.shape)}, z {tuple(z.shape)}, onehot "
+              f"{tuple(onehot.shape)}, {x.dtype}")
+    LAUNCHES["xty_folds_masked"] += 1
+    return out

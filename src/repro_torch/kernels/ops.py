@@ -39,3 +39,11 @@ def xty_folds(x: torch.Tensor, y: torch.Tensor,
     if x.device.type == "cpu":
         return _ref.xty_folds(x, y, bounds)
     return _gram.xty_folds(x, y, bounds)
+
+
+def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
+                     onehot: torch.Tensor) -> torch.Tensor:
+    """Per-slot masked cross-Gram.  (m, p), (m, q), (m, s) → (s, p, q)."""
+    if x.device.type == "cpu":
+        return _ref.xty_folds_masked(x, z, onehot)
+    return _gram.xty_folds_masked(x, z, onehot)

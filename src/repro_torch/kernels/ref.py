@@ -25,3 +25,15 @@ def xty_folds(x: torch.Tensor, y: torch.Tensor,
               bounds: Sequence[tuple[int, int]]) -> torch.Tensor:
     """Per-fold ``out[f] = X[lo:hi]ᵀ Y[lo:hi]`` in f32.  → (k, p, q)."""
     return torch.stack([xty(x[lo:hi], y[lo:hi]) for lo, hi in bounds])
+
+
+def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
+                     onehot: torch.Tensor) -> torch.Tensor:
+    """Per-slot masked ``out[s] = (x · onehot[:, s])ᵀ z`` in f32.
+
+    The reference's XLA formula (``repro/core/foldstats.py:241-244``): the
+    masked operand ``(s, m, p)`` is built, then contracted over rows.
+    x: (m, p), z: (m, q), onehot: (m, s) → (s, p, q).
+    """
+    xw = x.float()[None] * onehot.float().T[:, :, None]
+    return torch.einsum("smp,mq->spq", xw, z.float())

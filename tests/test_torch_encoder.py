@@ -93,8 +93,9 @@ def test_encoder_fit_predict_score_evaluate_match_jax(n, p, t, scoring):
                                    (69_202, 16_384, 444), (1000, 16_384, 2000)],
                          ids=["primal", "dual", "parcels", "whole_brain_mor"])
 @pytest.mark.parametrize("overrides", [{}, {"method": "dual"},
-                                       {"use_pallas": False}, {"n_folds": 3}],
-                         ids=["auto", "dual", "off", "k3"])
+                                       {"use_pallas": False}, {"n_folds": 3},
+                                       {"device_memory_budget": 4 << 30}],
+                         ids=["auto", "dual", "off", "k3", "budget"])
 def test_dispatch_decisions_match_jax_field_by_field(n, p, t, overrides):
     jd = jdispatch.resolve(JConfig(**overrides), n, p, t, 1)
     td = tdispatch.resolve(TConfig(**overrides), n, p, t, 1, device="cpu")
@@ -104,6 +105,9 @@ def test_dispatch_decisions_match_jax_field_by_field(n, p, t, overrides):
     plan = lambda d: d.rationale.split("; kernel tier")[0]  # noqa: E731
     assert plan(td) == plan(jd)
     assert "kernel tier: CUDA OFF" in td.rationale
+    if "device_memory_budget" in overrides:
+        # Only the parcels rows (4.66 GB resident) exceed the 4 GiB budget.
+        assert (td.method == "chunked") is (n == 69_202)
     on_cuda = TConfig(**overrides).resolve_use_pallas("cuda")
     assert on_cuda is (overrides.get("use_pallas") is not False)
 

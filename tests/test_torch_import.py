@@ -32,7 +32,8 @@ def test_port_has_every_slice_module():
               "repro_torch.encoding.config", "repro_torch.encoding.dispatch",
               "repro_torch.encoding.estimator",
               "repro_torch.encoding.pipeline", "repro_torch.data.fmri",
-              "repro_torch.convert"):
+              "repro_torch.data.store", "repro_torch.resilience.policy",
+              "repro_torch.resilience.cleanup", "repro_torch.convert"):
         assert m in mods, m
     assert (PORT / "kernels" / "csrc" / "gram.cu").exists()
 
@@ -116,9 +117,14 @@ def test_unported_plans_raise_not_implemented_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         dispatch.resolve(EncoderConfig(bands=(5, 5)), 100, 10, 5, 1,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dispatch.resolve(EncoderConfig(device_memory_budget=10**6),
+    # The streamed fit (item 6) is ported: the same budget now resolves.
+    d = dispatch.resolve(EncoderConfig(device_memory_budget=10**6),
                          100_000, 64, 8, 1, device="cpu")
+    assert (d.solver, d.method, d.data_shards) == ("ridge", "chunked", 1)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        dispatch.resolve(EncoderConfig(device_memory_budget=10**6,
+                                       target_block=4), 100_000, 64, 8, 1,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         dispatch.resolve(EncoderConfig(device_memory_budget=10**9,
                                        target_block=4), 100, 8, 16, 1,

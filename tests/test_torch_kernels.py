@@ -110,7 +110,9 @@ def test_ops_route_cpu_tensors_to_plain_versions_without_launching():
     tops.xty(tx, ty)
     tops.gram(tx)
     tops.xty_folds(tx, ty, [(0, 20), (20, 40)])
-    assert tgram.LAUNCHES == {"xty": 0, "xty_folds": 0}
+    tops.xty_folds_masked(tx, ty, torch.ones(40, 2))
+    assert tgram.LAUNCHES == {"xty": 0, "xty_folds": 0,
+                              "xty_folds_masked": 0}
     assert tops.kernel_tier_auto("cpu") is False
     assert tops.kernel_tier_auto(torch.device("cuda")) is True
 
@@ -184,4 +186,5 @@ def test_cuda_kernels_match_plain_versions(dtype):
     got = tgram.xty(x, y)
     torch.testing.assert_close(got, tref.xty(x, y), rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
-    assert tgram.LAUNCHES == {"xty": 1, "xty_folds": 1}
+    assert tgram.LAUNCHES == {"xty": 1, "xty_folds": 1,
+                              "xty_folds_masked": 0}

@@ -8,7 +8,9 @@ nvcc into ``build/kernels/``, then runs six phases, each of which raises
 (exit code 1) on a failed check:
 
 1. Environment: versions, TF32 switches (all off), card name and power
-   limit, kernel build time and the compiler's register/spill report.
+   limit, kernel build time (one nvcc per source, in parallel; beside it,
+   the same sources in one serial nvcc call) and the compiler's
+   register/spill report.
 2. Each kernel against its plain PyTorch version, f32 and bf16, at small
    ragged shapes and at the main path's full shapes, with times of the
    kernel, the plain version, the nearest library call, and the card's
@@ -28,6 +30,30 @@ nvcc into ``build/kernels/``, then runs six phases, each of which raises
    ``xty_folds_masked`` 9 times (8,192-row chunks); the first must come out
    significant on the 7,689 held-out rows, the second must resolve to the
    ``chunked`` plan and equal the in-memory fit of the same rows.
+
+7. The backbone kernels (``flash_attention``, ``ssd_intra``) against their
+   plain versions, f32 and bf16, at small ragged shapes covering every
+   option (causal, window, softcap, GQA, head dimensions 16 to 256), then
+   at the full-width shapes of one zamba2-2.7b forward (B=8 sequences of
+   S=4,096 tokens): flash through ``mha_flash`` on strided views of one
+   projection, as the model calls it (B=8, S=T=4,096, H=32, K=80, causal,
+   bf16), and through ``flash_attention`` on contiguous (B·H, S, K) copies;
+   ssd_intra at N=128 chunks, Q=256, H=80, P=64, f32.  Times of the kernel,
+   the plain version, the nearest library call (flash:
+   ``scaled_dot_product_attention``, backend named) and the card's bound.
+8. The full-width, full-depth zamba2-2.7b forward (63 pattern slots,
+   d=2,560) in f32 parameters, once with both kernel switches on and once
+   with both off: max|Δh| ≤ 1e-3·max|h|.
+9. The backbone-features slice (``launch/encode.py``'s steps) in bf16:
+   parameters from a seed, 8 × 4,096 random tokens, ``hidden_states``
+   (timed), the 32,768 × 2,560 standardized features, a planted response
+   for t=444 parcels, ``pipeline.run`` (primal).  It must launch
+   ``ssd_intra`` 54 times, ``flash_attention`` 9 times and ``xty_folds``
+   once, and come out significant; that ``xty_folds`` launch is held
+   against ``ref.xty_folds`` on its operands, and the fit against the
+   plain-path fit (equal λ, W and CV curve within rtol 1e-4/atol 2e-4).
+   Then one more forward runs under ``torch.profiler`` and the device
+   time is printed by kernel.
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -59,6 +85,18 @@ TEST_FRAC = 0.1
 # 1.49 s) and rows per streamed chunk.
 RUN_ROWS = 480
 CHUNK_ROWS = 8192
+# Phases 7-9: the backbone slice.  Tolerances of the attention and SSD
+# kernels against their plain versions, by output dtype.  Both sides read
+# the same operands and compute in f32, so an f32 output differs in
+# summation order only, and a bf16 output (rounded once, from f32 values
+# that differ by ~1e-6) by at most one bf16 ulp: ≤ 2⁻⁷ of its magnitude.
+BACKBONE = "zamba2-2.7b"
+BATCH, SEQ, PARCELS = 8, 4096, 444
+FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+             "bfloat16": dict(rtol=8e-3, atol=1e-5)}
+# bf16 tensor-core peak (dense, f32 accumulation): the rate for a product
+# of two bf16 operands, which is exact in f32.
+_BF16_PEAK = {"H100 80GB HBM3": 989e12}
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -136,7 +174,20 @@ def phase_env() -> dict:
     path, log = _build.build()
     _build.load()
     build_s = time.perf_counter() - t0
-    print(f"[env] kernels built+loaded in {build_s:.2f} s: {path.name}")
+    how = ("one nvcc per source, in parallel, then linked" if log
+           else "already built")
+    print(f"[env] kernels built+loaded in {build_s:.2f} s ({how}): "
+          f"{path.name}")
+    if log:
+        # The same sources in one serial nvcc call, for comparison only.
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            t0 = time.perf_counter()
+            _build._run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                         "-o", str(Path(tmp) / "serial.so"),
+                         *map(str, _build._sources())])
+            serial_s = time.perf_counter() - t0
+        print(f"[env] the same sources in one serial nvcc call: "
+              f"{serial_s:.2f} s [{card}]")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[env]   ptxas: {line.strip()}")
@@ -606,6 +657,453 @@ def phase_streamed(card: str) -> int:
     return launches["xty_folds_masked"]
 
 
+# --------------------------------------------------------------------------
+# Phase 7
+# --------------------------------------------------------------------------
+def _close(name, got, want) -> float:
+    """→ max |kernel − plain|, checked elementwise against FLASH_TOL of the
+    output's dtype."""
+    import torch
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    dtype_name = str(want.dtype).removeprefix("torch.")
+    tol = FLASH_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    bad = (g - w).abs() > tol["atol"] + tol["rtol"] * w.abs()
+    err = (g - w).abs().max().item()
+    check(not bool(bad.any()) and bool(torch.isfinite(g).all()),
+          f"{name} {dtype_name}: {int(bad.sum())} elements outside rtol "
+          f"{tol['rtol']:g}/atol {tol['atol']:g}, max|kernel-plain|={err:.3e}")
+    return err
+
+
+def phase_backbone_kernels_small() -> None:
+    import torch
+    from repro_torch.kernels import attention, ref, ssd
+
+    g = torch.Generator("cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    # (B, S, T, H, n_kv, K, causal, window, softcap)
+    cases = [(2, 200, 200, 4, 4, 80, True, None, None),
+             (1, 96, 96, 2, 1, 64, True, 40, 50.0),
+             (3, 64, 64, 1, 1, 16, False, None, None),
+             (2, 128, 100, 4, 2, 128, False, 30, 20.0),
+             (1, 130, 130, 8, 2, 80, True, 70, None),
+             (1, 65, 65, 2, 2, 256, True, None, 30.0),
+             (2, 33, 97, 6, 3, 48, True, None, None)]
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        for b, s_, t, h, n_kv, kd, causal, window, softcap in cases:
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            # Model layout with non-contiguous q/k/v (slices of one
+            # projection, as an einsum may leave them).
+            qkv = randn(b, s_ + 2 * t, h, kd)
+            q = (qkv[:, :s_] * kd ** -0.5).to(dt)
+            k = qkv[:, s_:s_ + t, :n_kv].to(dt)
+            v = qkv[:, s_ + t:, :n_kv].to(dt)
+            err = _close(f"mha_flash{(b, s_, t, h, n_kv, kd)} {kw}",
+                         attention.mha_flash(q, k, v, n_kv, **kw),
+                         ref.mha_flash(q, k, v, n_kv, **kw).contiguous())
+            qf = q.permute(0, 2, 1, 3).reshape(b * h, s_, kd).contiguous()
+            kf = torch.repeat_interleave(k, h // n_kv, dim=2).permute(
+                0, 2, 1, 3).reshape(b * h, t, kd).contiguous()
+            vf = torch.repeat_interleave(v, h // n_kv, dim=2).permute(
+                0, 2, 1, 3).reshape(b * h, t, kd).contiguous()
+            err2 = _close(f"flash_attention{(b * h, s_, t, kd)} {kw}",
+                          attention.flash_attention(qf, kf, vf, **kw),
+                          ref.flash_attention(qf, kf, vf, **kw))
+            print(f"[backbone-kernels] flash B={b} S={s_} T={t} H={h} "
+                  f"n_kv={n_kv} K={kd} causal={causal} window={window} "
+                  f"softcap={softcap} {dn}: max abs err mha {err:.3e}, "
+                  f"(BH,S,K) {err2:.3e} ok")
+        for n, q_, h, p in [(3, 100, 5, 70), (2, 256, 8, 64), (4, 8, 16, 32),
+                            (1, 64, 3, 130), (2, 1, 2, 1)]:
+            cb = (randn(n, q_, q_) / q_ ** 0.5).to(dt)
+            la = torch.cumsum(-randn(n, q_, h).abs() * 0.05, 1).to(dt)
+            x = randn(n, q_, h, p).to(dt)
+            err = _close(f"ssd_intra{(n, q_, h, p)}", ssd.ssd_intra(cb, la, x),
+                         ref.ssd_intra(cb, la, x))
+            print(f"[backbone-kernels] ssd_intra N={n} Q={q_} H={h} P={p} "
+                  f"{dn}: max abs err {err:.3e} ok")
+    # The wrappers refuse what the kernels do not take.
+    q = torch.zeros(1, 8, 2, 80, device="cuda")
+    for bad in (dict(n_kv=3), dict(window=0), dict(softcap=-1.0)):
+        kw = dict(dict(n_kv=2), **bad)
+        try:
+            attention.mha_flash(q, q, q, kw.pop("n_kv"), **kw)
+        except ValueError:
+            continue
+        raise RuntimeError(f"mha_flash accepted {bad}")
+    for bad in (torch.zeros(1, 8, 1, 257, device="cuda"), q.double(),
+                q.cpu()):
+        try:
+            attention.mha_flash(bad, bad, bad, 1)
+        except ValueError:
+            continue
+        raise RuntimeError("mha_flash accepted an operand it must refuse")
+    try:
+        ssd.ssd_intra(q[0, :, :, :8], q[0, :, :, 0], q)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("ssd_intra accepted mismatched shapes")
+
+
+def _sdpa(q, k, v):
+    """(name, fn) of the fastest SDPA backend that takes the model layout
+    (B, S, H, K) as (B, H, S, K) views, causal, with q pre-scaled (scale
+    1)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    args = [a.transpose(1, 2) for a in (q, k, v)]
+    names = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+             "MATH")
+    for backend in (getattr(SDPBackend, n) for n in names
+                    if hasattr(SDPBackend, n)):
+        def fn(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(
+                    *args, is_causal=True, scale=1.0).transpose(1, 2)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name, fn
+    raise RuntimeError("no SDPA backend takes these inputs")
+
+
+def phase_backbone_kernels_full(card: str, reps: int) -> dict:
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import attention, ref, ssd
+    from repro_torch.models.ssm import _dims
+
+    cfg = configs.get_config(BACKBONE)
+    g = torch.Generator("cuda").manual_seed(8)
+    rec = {}
+    # Flash: one shared-block attention of the forward, in the forward's
+    # dtype (bf16 parameters → bf16 q, k, v), through the wrapper the model
+    # calls (mha_flash), on strided q/k/v: views of one (B, S, 3, H, K)
+    # projection, q's part of the weight pre-scaled.  Scores have std ~1.
+    B, S, H, K = BATCH, SEQ, cfg.n_heads, cfg.resolved_head_dim
+    n_kv, d, bh, dt = cfg.n_kv_heads, cfg.d_model, BATCH * cfg.n_heads, \
+        torch.bfloat16
+    x = torch.randn(B, S, d, device="cuda", generator=g).to(dt)
+    w = torch.randn(d, 3, H, K, device="cuda", generator=g) * d ** -0.5
+    w[:, 0] *= K ** -0.5
+    q, k, v = torch.einsum("bsd,dchk->bschk", x, w.to(dt)).unbind(2)
+    k, v = k[:, :, :n_kv], v[:, :, :n_kv]
+    del x, w
+    check(not q.is_contiguous() and not v.is_contiguous(),
+          "full-width q/k/v are not strided views")
+    got = attention.mha_flash(q, k, v, n_kv)
+    want = ref.mha_flash(q, k, v, n_kv).contiguous()
+    err = _close(f"mha_flash B={B} S=T={S} H={H} K={K} strided", got, want)
+    scale = want.float().abs().max().item()
+    del got, want
+    # The (BH, S, K) wrapper on contiguous copies of the same operands.
+    qf, kf, vf = (a.permute(0, 2, 1, 3).reshape(bh, S, K).contiguous()
+                  for a in (q, k, v))
+    err_f = _close(f"flash_attention BH={bh} S=T={S} K={K}",
+                   attention.flash_attention(qf, kf, vf),
+                   ref.flash_attention(qf, kf, vf))
+    free()
+    lib_name, lib_fn = _sdpa(q, k, v)
+    lib_err = (lib_fn().float() - attention.mha_flash(q, k, v, n_kv).float()
+               ).abs().max().item()
+    ms = time_ms(lambda: attention.mha_flash(q, k, v, n_kv), reps)
+    contig_ms = time_ms(lambda: attention.flash_attention(qf, kf, vf), reps)
+    plain_ms = time_ms(lambda: ref.mha_flash(q, k, v, n_kv), reps)
+    lib_ms = time_ms(lib_fn, reps)
+    # Bound: Q·Kᵀ multiplies two bf16 operands (exact in f32), which the
+    # tensor cores do at the bf16 rate with f32 accumulation; P·V has the
+    # f32 P as an operand, so it needs the f32 rate.
+    pairs = S * (S + 1) / 2                        # causal (query, key) pairs
+    half = 2.0 * bh * K * pairs                    # FLOPs of each product
+    f32_peak, bw = peaks(card)
+    bf16_peak = next(v_ for k_, v_ in _BF16_PEAK.items() if k_ in card)
+    t_ops = half / bf16_peak + half / f32_peak
+    t_bytes = 4 * bh * S * K * q.element_size() / bw   # q, k, v; o written
+    bound = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[backbone-kernels] flash_attention (mha_flash) B={B} S=T={S} "
+          f"H={H} n_kv={n_kv} K={K} causal bf16, strided q/k/v: max abs err "
+          f"{err:.3e}, (BH,S,K) contiguous {err_f:.3e} (rtol "
+          f"{FLASH_TOL['bfloat16']['rtol']:g}/atol "
+          f"{FLASH_TOL['bfloat16']['atol']:g}, max|plain| {scale:.4e}); "
+          f"kernel {ms:.3f} ms ({2 * half / ms / 1e9:.1f} TFLOP/s; "
+          f"contiguous (BH,S,K) {contig_ms:.3f} ms), plain {plain_ms:.3f} "
+          f"ms, library {lib_ms:.3f} ms (SDPA {lib_name}, max|SDPA-kernel| "
+          f"{lib_err:.3e}), bound {bound:.3f} ms ({by}: Q·Kᵀ at the bf16 "
+          f"tensor-core rate, P·V at the f32 rate) [{card}]")
+    rec["flash_attention"] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": bound,
+                              "bound_by": by, "max_abs_err": err}
+    del q, k, v, qf, kf, vf, lib_fn
+    free()
+    # ssd_intra: one Mamba2 block's within-chunk term (f32, as the SSD
+    # forward computes it).
+    _, H, P, _, _ = _dims(cfg)
+    Q = cfg.ssm.chunk
+    N = BATCH * SEQ // Q
+    cb = torch.randn(N, Q, Q, device="cuda", generator=g) / Q ** 0.5
+    la = torch.cumsum(-torch.randn(N, Q, H, device="cuda",
+                                   generator=g).abs() * 0.05, 1)
+    x = torch.randn(N, Q, H, P, device="cuda", generator=g)
+    got = ssd.ssd_intra(cb, la, x)
+    want = ref.ssd_intra(cb, la, x)
+    err = _close(f"ssd_intra N={N} Q={Q} H={H} P={P}", got, want)
+    scale = want.abs().max().item()
+    del got, want
+    free()
+    ms = time_ms(lambda: ssd.ssd_intra(cb, la, x), reps * 10)
+    plain_ms = time_ms(lambda: ref.ssd_intra(cb, la, x), reps)
+    pairs = Q * (Q + 1) / 2
+    flops = 2.0 * N * H * P * pairs
+    nbytes = 4.0 * (N * Q * Q + N * Q * H + 2 * N * Q * H * P)
+    bound, by = _bound_ms(flops, nbytes, card)
+    print(f"[backbone-kernels] ssd_intra N={N} Q={Q} H={H} P={P} f32: max "
+          f"abs err {err:.3e} (rtol/atol 2e-4, max|plain| {scale:.4e}); "
+          f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f} ms, library none, bound {bound:.3f} ms ({by}) "
+          f"[{card}]")
+    rec["ssd_intra"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        "bound_ms": bound, "bound_by": by,
+                        "max_abs_err": err}
+    del cb, la, x
+    free()
+    return rec
+
+
+# --------------------------------------------------------------------------
+# Phases 8 and 9
+# --------------------------------------------------------------------------
+def _backbone(kernels: bool, dtype):
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get_config(BACKBONE)
+    cfg = dataclasses.replace(
+        cfg, param_dtype=dtype, flash_threshold=512, flash_block=512,
+        flash_kernel=kernels,
+        ssm=dataclasses.replace(cfg.ssm, use_kernel=kernels))
+    return cfg, build_model(cfg)
+
+
+def _reset_counters() -> None:
+    from repro_torch.kernels import attention, gram, ssd
+    for mod in (attention, gram, ssd):
+        mod.reset_launches()
+
+
+def _counters() -> dict:
+    from repro_torch.kernels import attention, gram, ssd
+    return {**gram.LAUNCHES, **attention.LAUNCHES, **ssd.LAUNCHES}
+
+
+def phase_backbone_f32_paths(card: str) -> None:
+    import torch
+    from repro_torch.data import synthetic
+
+    cfg, model = _backbone(True, torch.float32)
+    _, plain = _backbone(False, torch.float32)
+    params = model.init(torch.Generator("cuda").manual_seed(10))
+    batch = synthetic.make_batch(torch.Generator("cuda").manual_seed(11),
+                                 cfg, BATCH, SEQ)
+
+    def forward(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = m.hidden_states(params, batch)
+        torch.cuda.synchronize()
+        return h, time.perf_counter() - t0
+
+    _reset_counters()
+    h_k, kern_s = forward(model)
+    launches = _counters()
+    h, plain_s = forward(plain)
+    dh = (h_k - h).abs().max().item()
+    scale = h.abs().max().item()
+    print(f"[backbone-f32] {cfg.name} full width and depth, f32 parameters, "
+          f"B={BATCH} S={SEQ}: kernel path {kern_s:.2f} s (launches "
+          f"{launches}), plain path {plain_s:.2f} s; max|Δh| {dh:.3e} vs "
+          f"max|h| {scale:.4e} (limit 1e-3·max|h| = {1e-3 * scale:.3e}) "
+          f"[{card}]")
+    check(launches["flash_attention"] == cfg.n_repeats
+          and launches["ssd_intra"] == cfg.n_repeats * 6,
+          f"f32 kernel-path launches {launches}")
+    check(bool(torch.isfinite(h).all()) and bool(torch.isfinite(h_k).all()),
+          "non-finite hidden states")
+    check(dh <= 1e-3 * scale, f"max|Δh| {dh:.3e} > 1e-3·max|h|")
+    del params, h, h_k
+    free()
+
+
+def phase_backbone(card: str) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.foldstats import fold_bounds
+    from repro_torch.data import fmri, synthetic
+    from repro_torch.encoding import BrainEncoder, EncoderConfig, pipeline
+    from repro_torch.kernels import gram, ref
+    from repro_torch.models.params import count_params, param_bytes
+
+    cfg, model = _backbone(True, torch.bfloat16)
+    g = torch.Generator("cuda").manual_seed(12)
+    t0 = time.perf_counter()
+    params = model.init(g)
+    batch = synthetic.make_batch(g, cfg, BATCH, SEQ)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    defs = model.param_defs()
+    print(f"[backbone] {cfg.name}: {count_params(defs):,} parameters "
+          f"({param_bytes(defs) / 1e9:.2f} GB bf16) drawn in {init_s:.2f} s")
+    model.hidden_states(params, synthetic.make_batch(g, cfg, 1, 512))
+    torch.cuda.synchronize()
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    h = model.hidden_states(params, batch)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_peak = torch.cuda.max_memory_allocated()
+    # encode.py:160-177: every token's hidden state is one row of X.
+    t0 = time.perf_counter()
+    X = h.reshape(-1, h.shape[-1]).float()
+    X = (X - X.mean(0)) / (X.std(0, correction=0) + 1e-6)
+    n, p = X.shape
+    _, _, mask = fmri.generate(fmri.SubjectSpec(n=n, p=p, t=PARCELS), g,
+                               device="cuda")
+    W_true = torch.randn(p, PARCELS, device="cuda", generator=g) / p ** 0.5
+    W_true = W_true * mask.float()[None, :]
+    Y = X @ W_true * 2.0 + torch.randn(n, PARCELS, device="cuda",
+                                       generator=g)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    del h, W_true
+    t0 = time.perf_counter()
+    state = pipeline.run(X, Y, EncoderConfig(), device="cuda",
+                         detrend_targets=False, n_perms=5)
+    fit_s = time.perf_counter() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    rep, ev, d = state.report, state.evaluation, state.report.decision
+    print(f"[backbone] hidden_states B={BATCH} S={SEQ} bf16: {fwd_s:.3f} s "
+          f"({n / fwd_s:,.0f} tokens/s), peak device memory "
+          f"{fwd_peak / 2**30:.2f} GiB; features X ({n}, {p}) + planted Y "
+          f"(t={PARCELS}) {feat_s:.3f} s; pipeline.run {fit_s:.2f} s, stages "
+          f"(s) " + ", ".join(f"{k} {v:.3f}"
+                              for k, v in state.stage_seconds.items())
+          + f"; peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    print(f"[backbone] decision {d.solver}/{d.method} kernel tier "
+          f"{d.use_pallas}; launches {launches}; λ={rep.best_lambda[0]:g}; "
+          f"fit on {state.X.shape[0]} rows, on {state.X_test.shape[0]} "
+          f"held-out rows mean r {ev.mean_r:.4f} vs null |r| "
+          f"{ev.null_abs_r:.4f} (significant {ev.significant})")
+    n_mamba = cfg.n_repeats * sum(k == "mamba" for k in cfg.pattern)
+    check(launches["ssd_intra"] == n_mamba == 54,
+          f"ssd_intra launches {launches}")
+    check(launches["flash_attention"] == cfg.n_repeats == 9,
+          f"flash_attention launches {launches}")
+    check(launches["xty_folds"] == 1 and d.method == "eigh" and d.use_pallas,
+          f"fit launches {launches}, decision {d}")
+    check(float(rep.best_lambda[0]) in rep.lambdas, "λ not in the grid")
+    check(bool(torch.isfinite(rep.weights).all()), "W has non-finite values")
+    check(tuple(rep.weights.shape) == (p, PARCELS), "W shape")
+    check(ev.significant, "backbone-features fit not significant")
+    del X, Y
+    free()
+    # The fit's xty_folds launch against its plain version on the same
+    # operands (the standardized training rows, Xᵀ[X | Y] per fold), and
+    # the whole fit against the plain-path fit (use_pallas=False).
+    Xtr, Ytr = state.X, state.Y
+    bounds = fold_bounds(Xtr.shape[0], EncoderConfig().n_folds)
+    Z = torch.cat([Xtr, Ytr], 1)
+    err, _ = _compare(f"xty_folds n={Xtr.shape[0]} p={p} q={Z.shape[1]} "
+                      f"k={len(bounds)}", gram.xty_folds(Xtr, Z, bounds),
+                      ref.xty_folds(Xtr, Z, bounds), "float32")
+    del Z
+    free()
+    plain = BrainEncoder(EncoderConfig(), device="cuda",
+                         use_pallas=False).fit(Xtr, Ytr).report_
+    dw = (rep.weights - plain.weights).abs().max().item()
+    print(f"[backbone] fit's xty_folds against ref.xty_folds on its operands:"
+          f" max abs err {err:.3e} (tol {REL_TOL:g}·max|plain|); plain-path "
+          f"fit λ {plain.best_lambda[0]:g} vs {rep.best_lambda[0]:g}, "
+          f"max|ΔW| {dw:.3e} (rtol 1e-4, atol 2e-4) [{card}]")
+    check(plain.best_lambda[0] == rep.best_lambda[0],
+          f"λ kernel path {rep.best_lambda} vs plain {plain.best_lambda}")
+    np.testing.assert_allclose(rep.weights.cpu().numpy(),
+                               plain.weights.cpu().numpy(),
+                               rtol=1e-4, atol=2e-4)
+    np.testing.assert_allclose(rep.cv_scores, plain.cv_scores,
+                               rtol=1e-4, atol=2e-4)
+    del state, rep, plain, Xtr, Ytr
+    free()
+    _profile_forward(model, params, batch, fwd_s, card)
+    del params
+    free()
+    return launches
+
+
+def _profile_forward(model, params, batch, fwd_s: float, card: str) -> None:
+    """Device time of one more bf16 forward by kernel, from torch.profiler:
+    the device-side kernel records only (not the CPU ops that launch
+    them), so no time is counted twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.hidden_states(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        print(f"[backbone] profile: the profiler recorded no device time "
+              f"[{card}]")
+        return
+    rows.sort(reverse=True)
+    ours = {k: sum(r[0] for r in rows if k + "_kernel" in r[2])
+            for k in ("flash_attention", "ssd_intra")}
+    gemm = sum(r[0] for r in rows if any(
+        w in r[2].lower() for w in ("gemm", "nvjet", "cutlass", "xmma")))
+    print(f"[backbone] profile of one more bf16 forward: {wall_ms:.1f} ms "
+          f"wall under the profiler (timed forward {fwd_s * 1e3:.1f} ms), "
+          f"device busy {busy:.1f} ms ({100 * (1 - busy / wall_ms):.1f}% "
+          f"idle): flash_attention {ours['flash_attention']:.1f} ms "
+          f"({100 * ours['flash_attention'] / busy:.1f}%), ssd_intra "
+          f"{ours['ssd_intra']:.1f} ms ({100 * ours['ssd_intra'] / busy:.1f}"
+          f"%), library GEMMs {gemm:.1f} ms ({100 * gemm / busy:.1f}%), "
+          f"everything else {busy - gemm - sum(ours.values()):.1f} ms; top "
+          f"kernels by device time [{card}]:")
+    for ms, count, name in rows[:12]:
+        print(f"[backbone]   {ms:9.1f} ms {100 * ms / busy:5.1f}%  "
+              f"×{count:<5d} {name[:110]}")
+
+
 def main() -> int:
     import torch
 
@@ -616,21 +1114,31 @@ def main() -> int:
     env = phase_env()
     card = env["card"]
     phase_kernels_small()
+    phase_backbone_kernels_small()
     rec = phase_kernels_full(card, reps=3)
     launches = {"xty_folds": phase_primal(card),
                 "xty": phase_dual(card)}
     phase_paths()
     launches["xty_folds_masked"] = phase_streamed(card)
-    replaces = {"xty_folds": "src/repro/kernels/gram.py:158",
-                "xty": "src/repro/kernels/gram.py:72",
-                "xty_folds_masked": "src/repro/kernels/gram.py:233"}
-    kernels = [{"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/gram.cu",
-                "replaces": replaces[name], "launches": launches[name],
+    rec.update(phase_backbone_kernels_full(card, reps=3))
+    phase_backbone_f32_paths(card)
+    backbone = phase_backbone(card)
+    launches.update(flash_attention=backbone["flash_attention"],
+                    ssd_intra=backbone["ssd_intra"])
+    csrc = "src/repro_torch/kernels/csrc/"
+    where = {"xty_folds": ("gram.cu", "src/repro/kernels/gram.py:158"),
+             "xty": ("gram.cu", "src/repro/kernels/gram.py:72"),
+             "xty_folds_masked": ("gram.cu",
+                                  "src/repro/kernels/gram.py:233"),
+             "flash_attention": ("flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:124"),
+             "ssd_intra": ("ssd.cu", "src/repro/kernels/ssd.py:69")}
+    kernels = [{"name": name, "route": "cuda", "source": csrc + src,
+                "replaces": replaces, "launches": launches[name],
                 **{k: rec[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms")}}
-               for name in ("xty_folds", "xty", "xty_folds_masked")]
+               for name, (src, replaces) in where.items()]
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Carry state across packages: numpy arrays → the port's objects.
 
 A fit made by the JAX package, exported as numpy arrays, becomes the
-port's ``FoldStats`` or a fitted ``BrainEncoder`` here, so both packages
-can be held to the same statistics and weights.
+port's ``FoldStats`` or a fitted ``BrainEncoder`` here, and a backbone's
+parameter tree becomes the port's parameters, so both packages can be held
+to the same statistics, weights and forward.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from repro_torch.encoding.config import EncoderConfig
 from repro_torch.encoding.dispatch import DispatchDecision
 from repro_torch.encoding.estimator import BrainEncoder, EncodingReport
 from repro_torch.encoding.pipeline import Standardizer
+from repro_torch.models import build_model
+from repro_torch.models.config import ModelConfig
 
 
 def fold_stats_from_numpy(G, C, xsum, ysum, ysq, count, *,
@@ -50,3 +53,30 @@ def encoder_from_numpy(weights, best_lambda, cv_scores, lambdas,
                                                 enc.device)
             for k, v in standardizer.items()})
     return enc
+
+
+def model_params_from_numpy(tree: dict, cfg: ModelConfig, *,
+                            device: torch.device | str | None = None) -> dict:
+    """The port's parameters of ``build_model(cfg)`` from a parameter tree
+    as numpy (the JAX ``model.init(...)`` tree passed through
+    ``np.asarray``): nested dicts of arrays, bf16 leaves as ml_dtypes
+    ``bfloat16`` or ``uint16`` bit patterns (``device.host_view``).  Every
+    leaf keeps its dtype; keys and shapes are checked against the port's
+    ``param_defs()``."""
+    dev = resolve_device(device)
+    defs = build_model(cfg).param_defs()
+
+    def walk(t, d, path):
+        if isinstance(d, dict):
+            if not isinstance(t, dict) or set(t) != set(d):
+                got = sorted(t) if isinstance(t, dict) else type(t).__name__
+                raise ValueError(f"parameter tree at {path or '/'}: keys "
+                                 f"{got}, want {sorted(d)}")
+            return {k: walk(t[k], d[k], f"{path}/{k}") for k in sorted(d)}
+        a = np.asarray(t)
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"parameter {path}: shape {a.shape}, want "
+                             f"{d.shape}")
+        return as_tensor(np.ascontiguousarray(a), dev)
+
+    return walk(tree, defs, "")

@@ -2,7 +2,11 @@
 
   csrc/gram.cu — per-fold cross-Gram ``X_fᵀY_f`` (``xty_folds``, ``xty``)
                  and per-slot masked ``(X·w_s)ᵀZ`` (``xty_folds_masked``)
-  gram.py      — checked launchers with launch counters (CUDA tensors only)
+  csrc/flash_attention.cu — streaming-softmax attention (``flash_attention``,
+                 ``mha_flash``)
+  csrc/ssd.cu  — the Mamba2 SSD within-chunk term (``ssd_intra``)
+  gram.py, attention.py, ssd.py — checked launchers with launch counters
+                 (CUDA tensors only)
   _build.py    — nvcc build into ``build/kernels/`` and ctypes loading
   ref.py       — plain PyTorch versions (CPU path, tests, on-card checks)
   ops.py       — routes by tensor device: CPU → ref, CUDA → kernel

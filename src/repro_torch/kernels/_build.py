@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
 
 The sources under ``kernels/csrc/`` expose a plain C interface, so they are
-compiled by ``nvcc`` alone — no PyTorch headers — into one shared library
-for Hopper (``sm_90a``) and loaded with ``ctypes``.  The build happens at
-first use, into ``build/kernels/`` at the repository root; the library's
-file name carries a hash of the sources and flags, so a changed source is
+compiled by ``nvcc`` alone — no PyTorch headers — for Hopper (``sm_90a``),
+one ``nvcc -c`` per source, all started together, then linked into one
+shared library and loaded with ``ctypes``.  The build happens at first
+use, into ``build/kernels/`` at the repository root; the library's file
+name carries a hash of the sources and flags, so a changed source is
 rebuilt and an unchanged one is loaded as it is.  A failed build or load
 raises with nvcc's output: there is no fallback.
 """
@@ -16,14 +17,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _LOCK = threading.Lock()
 
@@ -52,6 +54,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> tuple[Path, str]:
     """Compile the sources if their library is missing.
 
@@ -63,15 +73,18 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(prefix=f"{lib.stem}.",
+                                     dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        with ThreadPoolExecutor(len(objs)) as pool:
+            log = "".join(pool.map(_run, (
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs))))
+        out = Path(tmp) / lib.name
+        _run([nvcc, "-shared", "-o", str(out), *map(str, objs)])
+        os.replace(out, lib)
+    return lib, log
 
 
 @functools.cache
@@ -95,6 +108,26 @@ def load() -> ctypes.CDLL:
         # x, z, w, out, m, p, q, s, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32, ptr]
         fn.restype = i32
+    for name in ("repro_flash_attention_f32", "repro_flash_attention_bf16"):
+        fn = getattr(lib, name)
+        # q, k, v, o, strides (host int64 ×12), B, H, n_kv, S, T, K, causal,
+        # window, softcap, device, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.POINTER(i64), i64, i32, i32,
+                       i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+        fn.restype = i32
+    for name in ("repro_ssd_intra_f32", "repro_ssd_intra_bf16"):
+        fn = getattr(lib, name)
+        # cb, la, x, out, N, Q, H, P, device, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
+        fn.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_rc(lib: ctypes.CDLL, rc: int, name: str, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg}) at {what}")

@@ -89,8 +89,8 @@ def _launch(name: str, x: torch.Tensor, y: torch.Tensor,
         rc = fn(x.data_ptr(), y.data_ptr(), flat, out.data_ptr(), p,
                 q, k, torch.cuda.current_device(),
                 torch.cuda.current_stream().cuda_stream)
-    _check_rc(lib, rc, name, f"x {tuple(x.shape)}, y {tuple(y.shape)}, "
-                             f"k={k}, {x.dtype}")
+    _build.check_rc(lib, rc, name, f"x {tuple(x.shape)}, y "
+                    f"{tuple(y.shape)}, k={k}, {x.dtype}")
     LAUNCHES[name] += 1
     return out
 
@@ -99,13 +99,6 @@ def _check_grid(p: int) -> None:
     if -(-p // _TILE) > _MAX_GRID_YZ:
         raise ValueError(f"p={p} exceeds the kernel's grid limit "
                          f"{_MAX_GRID_YZ * _TILE}")
-
-
-def _check_rc(lib, rc: int, name: str, what: str) -> None:
-    if rc != 0:
-        msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg}) at {what}")
 
 
 def xty_folds(x: torch.Tensor, y: torch.Tensor,
@@ -157,8 +150,8 @@ def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
         rc = fn(x.data_ptr(), z.data_ptr(), onehot.data_ptr(), out.data_ptr(),
                 m, p, q, s, torch.cuda.current_device(),
                 torch.cuda.current_stream().cuda_stream)
-    _check_rc(lib, rc, "xty_folds_masked",
-              f"x {tuple(x.shape)}, z {tuple(z.shape)}, onehot "
-              f"{tuple(onehot.shape)}, {x.dtype}")
+    _build.check_rc(lib, rc, "xty_folds_masked",
+                    f"x {tuple(x.shape)}, z {tuple(z.shape)}, onehot "
+                    f"{tuple(onehot.shape)}, {x.dtype}")
     LAUNCHES["xty_folds_masked"] += 1
     return out

@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/ops.py``.  The route is the tensor's device: a CPU
 tensor goes to the plain version (``kernels.ref``), a CUDA tensor to the
-hand-written kernel (``kernels.gram``), which launches or raises.
+hand-written kernel (``kernels.gram``, ``kernels.attention``,
+``kernels.ssd``), which launches or raises.
 """
 from __future__ import annotations
 
@@ -10,8 +11,10 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 
 
 def kernel_tier_auto(device: torch.device | str) -> bool:
@@ -47,3 +50,33 @@ def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
     if x.device.type == "cpu":
         return _ref.xty_folds_masked(x, z, onehot)
     return _gram.xty_folds_masked(x, z, onehot)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Streaming attention, (BH, S, K) layout, q pre-scaled → (BH, S, K)."""
+    if q.device.type == "cpu":
+        return _ref.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
+    return _attention.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
+
+
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_kv: int,
+              *, causal: bool = True, window: int | None = None,
+              softcap: float | None = None) -> torch.Tensor:
+    """Model-layout attention: q (B,S,H,K), GQA k/v (B,T,N,K) → (B,S,H,K)."""
+    if q.device.type == "cpu":
+        return _ref.mha_flash(q, k, v, n_kv, causal=causal, window=window,
+                              softcap=softcap)
+    return _attention.mha_flash(q, k, v, n_kv, causal=causal, window=window,
+                                softcap=softcap)
+
+
+def ssd_intra(cb: torch.Tensor, la: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """Mamba2 SSD within-chunk term.  (N,Q,Q), (N,Q,H), (N,Q,H,P) → f32."""
+    if x.device.type == "cpu":
+        return _ref.ssd_intra(cb, la, x)
+    return _ssd.ssd_intra(cb, la, x)

@@ -37,3 +37,68 @@ def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
     """
     xw = x.float()[None] * onehot.float().T[:, :, None]
     return torch.einsum("smp,mq->spq", xw, z.float())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Dense-materialised attention, as the reference's oracle
+    (``repro/kernels/ref.py:29``): scores, softcap, mask, softmax and the
+    value product in f32.  q (BH, S, K) pre-scaled; k/v (BH, T, K) →
+    (BH, S, K) in q's dtype.  The (S, T) scores of a few heads at a time
+    are materialised (at most 2²⁸ elements, 1 GiB of f32)."""
+    bh, S, _ = q.shape
+    T = k.shape[1]
+    dist = (torch.arange(S, device=q.device)[:, None]
+            - torch.arange(T, device=q.device)[None, :])
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= dist >= 0
+    if window is not None:
+        mask &= dist < window
+    out = torch.empty_like(q)
+    step = max(1, (1 << 28) // (S * T))
+    for lo in range(0, bh, step):
+        hi = min(lo + step, bh)
+        s = torch.einsum("hsk,htk->hst", q[lo:hi].float(), k[lo:hi].float())
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        p = torch.softmax(torch.where(mask[None], s, -1e30), dim=-1)
+        out[lo:hi] = torch.einsum("hst,htk->hsk", p, v[lo:hi].float()
+                                  ).to(q.dtype)
+    return out
+
+
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_kv: int,
+              *, causal: bool = True, window: int | None = None,
+              softcap: float | None = None) -> torch.Tensor:
+    """Model layout, as the reference's ``mha_flash``: q (B, S, H, K),
+    k/v (B, T, n_kv, K), query head h reads kv head h // (H / n_kv) →
+    (B, S, H, K)."""
+    b, s, h, kd = q.shape
+    t = k.shape[1]
+    g = h // n_kv
+    k = torch.repeat_interleave(k, g, dim=2)
+    v = torch.repeat_interleave(v, g, dim=2)
+    qf = q.permute(0, 2, 1, 3).reshape(b * h, s, kd)
+    kf = k.permute(0, 2, 1, 3).reshape(b * h, t, kd)
+    vf = v.permute(0, 2, 1, 3).reshape(b * h, t, kd)
+    out = flash_attention(qf, kf, vf, causal=causal, window=window,
+                          softcap=softcap)
+    return out.reshape(b, h, s, kd).permute(0, 2, 1, 3)
+
+
+def ssd_intra(cb: torch.Tensor, la: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """Mamba2 SSD within-chunk term, dense, as the reference's oracle
+    (``repro/kernels/ref.py:62``):
+    ``y[n,q,h,p] = Σ_{k≤q} exp(la[n,q,h] − la[n,k,h])·cb[n,q,k]·x[n,k,h,p]``.
+    cb (N, Q, Q), la (N, Q, H), x (N, Q, H, P) → (N, Q, H, P) f32; the
+    (N, Q, Q, H) decay is materialised."""
+    cb, la, x = cb.float(), la.float(), x.float()
+    q = cb.shape[1]
+    diff = la[:, :, None, :] - la[:, None, :, :]        # (N,Q,Q,H)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=cb.device))[None, :, :, None]
+    decay = torch.exp(torch.where(mask, diff, -torch.inf))
+    return torch.einsum("nqkh,nkhp->nqhp", decay * cb[:, :, :, None], x)

@@ -1,0 +1,306 @@
+"""Shared transformer building blocks: norms, RoPE, GQA attention, gated
+MLPs, embeddings.
+
+Port of ``repro/models/layers.py`` (full-sequence forward; decode and
+``unembed`` wait for ROADMAP queue 1 item 12).  Every block is a plain
+function over a nested dict of tensors described by the ``*_defs``
+``ParamDef`` trees.  Where the reference asks for f32 accumulation
+(``preferred_element_type=float32``) the operands are upcast to f32 first:
+a bf16 product is exact in f32, so the sum is the f32 sum the reference
+takes.
+
+Attention runs one of three paths, on the reference's switches:
+``flash_threshold``/``flash_block`` pick the streaming path, and
+``flash_kernel`` picks the hand-written kernel (``kernels.ops.mha_flash``)
+over the plain block loop (``_blockwise_attention``); otherwise the scores
+are materialised.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef
+
+Params = Any  # nested dict of tensors
+
+NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_defs(d: int) -> dict:
+    return {"scale": ParamDef((d,), (None,), init="ones", dtype=torch.float32)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * p["scale"]).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (NeoX interleaving)
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcast to (..., seq)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32,
+                                       device=x.device))
+    freqs = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32,
+                                                device=x.device) / half)
+    angles = positions[..., None].float() * freqs     # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]             # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    dt = cfg.param_dtype
+    defs = {
+        "wq": ParamDef((d, h, hd), ("embed", "heads", None), dtype=dt,
+                       fan_in=d),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv", None), dtype=dt, fan_in=d),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv", None), dtype=dt, fan_in=d),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed"), dtype=dt),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = rmsnorm_defs(hd)
+        defs["k_norm"] = rmsnorm_defs(hd)
+    return defs
+
+
+@dataclasses.dataclass
+class AttnVariant:
+    window: int | None = None            # None → global causal
+    softcap: float | None = None
+    causal: bool = True                  # False for encoder self-attn
+    use_rope: bool = True                # False for cross-attention
+
+
+def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor, use_rope: bool = True):
+    hd = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dnk->bsnk", x, p["wk"])
+    v = torch.einsum("bsd,dnk->bsnk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q * (hd ** -0.5), k, v
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q: (B,S,H,K), k: (B,T,N,K) → (B,N,G,S,T) f32 with H = N·G."""
+    b, s, h, hd = q.shape
+    g = h // n_kv
+    qg = q.reshape(b, s, n_kv, g, hd)
+    return torch.einsum("bsngk,btnk->bngst", qg.float(), k.float())
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs: (B,N,G,S,T), v: (B,T,N,K) → (B,S,H,K)."""
+    b, n, g, s, t = probs.shape
+    out = torch.einsum("bngst,btnk->bsngk", probs.to(v.dtype), v)
+    return out.reshape(b, s, n * g, v.shape[-1])
+
+
+def _blockwise_attention(cfg: ModelConfig, var: AttnVariant, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor,
+                         positions: torch.Tensor,
+                         kv_pos: torch.Tensor) -> torch.Tensor:
+    """Streaming (flash-style) attention in plain PyTorch: a loop over q
+    blocks and, inside it, over kv blocks with a running-softmax carry, so
+    the S×T scores never materialise.
+
+    For sliding-window attention the inner loop is *banded*: only the
+    ``window//kb + 2`` KV blocks that can intersect the window are visited
+    per Q block.  q: (B,S,H,K) pre-scaled; k/v: (B,T,N,K).  → (B,S,H,K).
+    """
+    B, S, H, K = q.shape
+    T, N = k.shape[1], cfg.n_kv_heads
+    G = H // N
+    bs = cfg.flash_block
+    qb, kb = min(bs, S), min(bs, T)
+    nq, nk = S // qb, T // kb
+
+    banded = var.window is not None and var.causal
+    n_inner = min(nk, var.window // kb + 2) if banded else nk
+
+    out = torch.empty_like(q)
+    for i in range(nq):
+        qg = q[:, i * qb:(i + 1) * qb].reshape(B, qb, N, G, K).float()
+        q_pos = positions[:, i * qb:(i + 1) * qb]
+        m = torch.full((B, N, G, qb), NEG, device=q.device)
+        l = torch.zeros((B, N, G, qb), device=q.device)
+        acc = torch.zeros((B, N, G, qb, K), device=q.device)
+        for j in range(n_inner):
+            raw = (i - (n_inner - 1) + j) if banded else j
+            # Out-of-range banded visits are clipped for safe indexing and
+            # masked out (revisiting block 0 must not double-count).
+            blk = min(max(raw, 0), nk - 1)
+            visit_ok = 0 <= raw <= nk - 1
+            k_blk = k[:, blk * kb:(blk + 1) * kb].float()
+            v_blk = v[:, blk * kb:(blk + 1) * kb].float()
+            k_pos = kv_pos[:, blk * kb:(blk + 1) * kb]
+            s = torch.einsum("bqngk,btnk->bngqt", qg, k_blk)
+            s = _softcap(s, var.softcap)
+            dist = q_pos[:, None, None, :, None] - \
+                k_pos[:, None, None, None, :]
+            mask = torch.full_like(dist, visit_ok, dtype=torch.bool)
+            if var.causal:
+                mask &= dist >= 0
+            if var.window is not None:
+                mask &= dist < var.window
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + \
+                torch.einsum("bngqt,btnk->bngqk", p, v_blk)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]        # (B,N,G,qb,K)
+        out[:, i * qb:(i + 1) * qb] = o.permute(0, 3, 1, 2, 4).reshape(
+            B, qb, H, K).to(q.dtype)
+    return out
+
+
+def attention(p: Params, cfg: ModelConfig, var: AttnVariant, x: torch.Tensor,
+              positions: torch.Tensor, kv_x: torch.Tensor | None = None,
+              kv_positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention (training / prefill / feature extraction).
+
+    ``kv_x`` enables cross-attention (keys/values from another sequence).
+    Switches to the streaming path when the sequence reaches
+    ``cfg.flash_threshold`` (None → always dense-materialised scores) and
+    both lengths divide by ``cfg.flash_block``.
+    """
+    if kv_x is None:
+        q, k, v = _qkv(p, cfg, x, positions, use_rope=var.use_rope)
+        kv_pos = positions
+    else:
+        hd = cfg.resolved_head_dim
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        if var.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+        q = q * (hd ** -0.5)
+        k = torch.einsum("bsd,dnk->bsnk", kv_x, p["wk"])
+        v = torch.einsum("bsd,dnk->bsnk", kv_x, p["wv"])
+        if cfg.qk_norm:
+            k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        kv_pos = kv_positions if kv_positions is not None else \
+            torch.arange(kv_x.shape[1], dtype=torch.int32,
+                         device=kv_x.device)[None].expand(kv_x.shape[:2])
+        if var.use_rope:
+            k = rope(k, kv_pos, cfg.rope_theta)
+
+    if cfg.flash_threshold is not None and \
+            x.shape[1] >= cfg.flash_threshold and \
+            x.shape[1] % cfg.flash_block == 0 and \
+            k.shape[1] % cfg.flash_block == 0:
+        if cfg.flash_kernel:
+            # The kernel tiles the sequence itself; flash_block only
+            # gates this path, as in the reference.
+            out = kernel_ops.mha_flash(
+                q, k, v, cfg.n_kv_heads, causal=var.causal,
+                window=var.window, softcap=var.softcap)
+        else:
+            out = _blockwise_attention(cfg, var, q, k, v, positions, kv_pos)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    scores = _gqa_scores(q, k, cfg.n_kv_heads)       # (B,N,G,S,T)
+    scores = _softcap(scores, var.softcap)
+    dist = positions[:, None, None, :, None] - kv_pos[:, None, None, None, :]
+    mask = torch.ones_like(dist, dtype=torch.bool)
+    if var.causal:
+        mask &= dist >= 0
+    if var.window is not None:
+        mask &= dist < var.window
+    scores = torch.where(mask, scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, dff, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.param_dtype
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        return {
+            "wi": ParamDef((d, 2, dff), ("embed", None, "mlp"), dtype=dt,
+                           fan_in=d),
+            "wo": ParamDef((dff, d), ("mlp", "embed"), dtype=dt),
+        }
+    return {
+        "wi": ParamDef((d, dff), ("embed", "mlp"), dtype=dt),
+        "wo": ParamDef((dff, d), ("mlp", "embed"), dtype=dt),
+    }
+
+
+def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        h = torch.einsum("bsd,dcf->bscf", x, p["wi"])
+        gate, up = h[..., 0, :], h[..., 1, :]
+        act = F.silu(gate) if cfg.mlp_act == "swiglu" else \
+            F.gelu(gate, approximate="tanh")
+        h = act * up
+    else:
+        h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wi"]),
+                   approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+def embed_defs(cfg: ModelConfig) -> dict:
+    # std 0.02: keeps tied-unembedding logits O(1) at init (GPT-2 convention).
+    defs = {"tok": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                            dtype=cfg.param_dtype, scale=0.02)}
+    if not cfg.tie_embeddings:
+        defs["out"] = ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                               dtype=cfg.param_dtype)
+    return defs
+
+
+def embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = p["tok"][tokens]
+    if cfg.scale_embedding:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x

@@ -1,0 +1,98 @@
+"""Parameter definition trees: one source of truth for shapes, dtypes and
+initialisers.
+
+Port of ``repro/models/params.py`` (``ParamDef``, ``init``,
+``count_params``, ``param_bytes``).  A model's ``param_defs()`` is a nested
+dict with ``ParamDef`` leaves; ``init`` materialises it with draws from an
+explicit ``torch.Generator`` on the generator's device.  The logical axis
+names are kept for the sharding rules, which come with the multi-device
+slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """A single parameter: shape + dtype + logical axes + initialiser."""
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"          # "normal" | "zeros" | "ones" | "scaled"
+    scale: float | None = None    # stddev override for "normal"/"scaled"
+    fan_in: int | None = None     # explicit fan-in when the heuristic fails
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             f"in rank")
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` over the leaves of a nested dict (keys in sorted order, as
+    ``jax.tree_util`` orders them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _std(d: ParamDef) -> float:
+    # Fan-in: explicit when given, else the product of all input dims —
+    # every dim except the output (last) one and any stacked "layer" axis.
+    if d.fan_in is not None:
+        fan_in = d.fan_in
+    else:
+        in_dims = [s for s, a in zip(d.shape[:-1], d.axes[:-1])
+                   if a != "layer"]
+        fan_in = math.prod(in_dims) if in_dims else d.shape[-1]
+    return d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def init(tree, generator: torch.Generator,
+         dtype_override: torch.dtype | None = None, *,
+         device: torch.device | str | None = None) -> dict:
+    """Materialise parameters on ``device`` (CUDA unless ``device="cpu"``),
+    drawn from ``generator``, which must live there.
+
+    ``zeros``/``ones`` leaves are constant; every other leaf is drawn in
+    float32 from N(0, std²), std = ``scale`` or ``1/sqrt(fan_in)``, and cast
+    to its dtype (or ``dtype_override``).  Leaves draw in sorted-key order
+    from the one generator, so a seed fixes every parameter.
+    """
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device} cannot draw on "
+                         f"{dev}; make it with torch.Generator({dev.type!r})")
+
+    def one(d: ParamDef) -> torch.Tensor:
+        dt = dtype_override or d.dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=dev)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=dev)
+        w = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return w.mul_(_std(d)).to(dt)
+
+    return tree_map(one, tree)
+
+
+def count_params(tree) -> int:
+    return sum(math.prod(d.shape) for d in leaves(tree))
+
+
+def param_bytes(tree) -> int:
+    return sum(math.prod(d.shape) * d.dtype.itemsize for d in leaves(tree))

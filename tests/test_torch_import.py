@@ -33,9 +33,17 @@ def test_port_has_every_slice_module():
               "repro_torch.encoding.estimator",
               "repro_torch.encoding.pipeline", "repro_torch.data.fmri",
               "repro_torch.data.store", "repro_torch.resilience.policy",
-              "repro_torch.resilience.cleanup", "repro_torch.convert"):
+              "repro_torch.resilience.cleanup", "repro_torch.convert",
+              "repro_torch.kernels.attention", "repro_torch.kernels.ssd",
+              "repro_torch.models", "repro_torch.models.config",
+              "repro_torch.models.params", "repro_torch.models.layers",
+              "repro_torch.models.ssm", "repro_torch.models.hybrid",
+              "repro_torch.configs", "repro_torch.configs.zamba2_2_7b",
+              "repro_torch.configs.mamba2_130m",
+              "repro_torch.data.synthetic"):
         assert m in mods, m
-    assert (PORT / "kernels" / "csrc" / "gram.cu").exists()
+    for src in ("gram.cu", "flash_attention.cu", "ssd.cu"):
+        assert (PORT / "kernels" / "csrc" / src).exists(), src
 
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():

@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs six phases, each of which raises
+nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
 (exit code 1) on a failed check:
 
 1. Environment: versions, TF32 switches (all off), card name and power
@@ -54,6 +54,23 @@ nvcc into ``build/kernels/``, then runs six phases, each of which raises
    plain-path fit (equal λ, W and CV curve within rtol 1e-4/atol 2e-4).
    Then one more forward runs under ``torch.profiler`` and the device
    time is printed by kernel.
+10. The seed path's kernels (``solve_lambda_grid``, ``pearson_r``) against
+    their plain versions, f32 and bf16: at small ragged shapes (Q row- and
+    column-major; a constant and a perfectly anti-correlated column), then
+    at full shapes with times of kernel, plain version and library call
+    beside the bound: the solve at the parcels primal split (r=11,
+    p=16,384, t=444, Q from an ``eigh``), Pearson at the whole-brain
+    evaluation (7,689 test rows × 264,805 targets) through ``ops.pearson_r``
+    (one launch, counted), and on phase 3's held-out rows against the
+    centred ``scoring.pearson_r``.
+11. The seed per-fold CV path ``ridge_cv_reference`` with the kernel tier
+    on: primal at the ``parcels`` size (5 ``solve_lambda_grid`` and 6
+    ``xty`` launches; its first solve held against the plain version on
+    its operands; λ, W and CV curve against ``ridge_cv`` at the reference's
+    parity tolerance; wall times of both, and the seed path split into
+    Gram + eigh, solve, predictions + scores and refit), then dual at the
+    ``whole_brain_mor`` size (61 ``xty`` launches; equal to the plain seed
+    path).
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -73,8 +90,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # (f32 FLOP/s outside the tensor cores, device memory bytes/s) from NVIDIA's
-# data sheet, at the full power limit; "H100 80GB HBM3" is the SXM part.
-_PEAKS = {"H100 80GB HBM3": (67e12, 3.35e12)}
+# H100 Tensor Core GPU data sheets, at each part's full power limit:
+# "H100 80GB HBM3" is the SXM part (67 TFLOPS FP32, 3.35 TB/s), "H100 PCIe"
+# the PCIe card (51 TFLOPS FP32, 2 TB/s of HBM2e), "H100 NVL" the NVL card
+# (60 TFLOPS FP32, 3.9 TB/s).
+_PEAKS = {"H100 80GB HBM3": (67e12, 3.35e12),
+          "H100 PCIe": (51e12, 2.0e12),
+          "H100 NVL": (60e12, 3.9e12)}
 # |kernel − plain| ≤ REL_TOL · max|plain|.  Both accumulate in f32 (bf16
 # products are exact in f32), so the gap is summation order alone: about
 # eps·sqrt(rows) of max|plain| at the full 69,202-row shape.
@@ -95,8 +117,19 @@ BATCH, SEQ, PARCELS = 8, 4096, 444
 FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
              "bfloat16": dict(rtol=8e-3, atol=1e-5)}
 # bf16 tensor-core peak (dense, f32 accumulation): the rate for a product
-# of two bf16 operands, which is exact in f32.
-_BF16_PEAK = {"H100 80GB HBM3": 989e12}
+# of two bf16 operands, which is exact in f32.  The same data sheets list
+# the rates with sparsity (1,979, 1,513 and 1,671 TFLOPS); dense is half.
+_BF16_PEAK = {"H100 80GB HBM3": 989e12, "H100 PCIe": 756e12,
+              "H100 NVL": 835e12}
+# Phase 10-11: the seed path.  The reference's kernel-test tolerance for
+# Pearson r against the centred formula (tests/test_kernels.py:171-173, f32)
+# and its parity tolerances of the seed path against ridge_cv
+# (tests/test_foldstats.py:139-144).
+PEARSON_CENTRED_TOL = 1e-3
+SEED_CV_TOL, SEED_W_TOL = 1e-3, 2e-3
+# The whole-brain evaluation: the paper's 264,805 targets on the held-out
+# 10% of the rows that rows_before_split(69,202) generates.
+WHOLE_BRAIN_T = 264_805
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -121,6 +154,13 @@ def peaks(name: str) -> tuple[float, float]:
         if key in name:
             return val
     raise RuntimeError(f"no f32/bandwidth peaks known for card {name!r}")
+
+
+def bf16_peak(name: str) -> float:
+    for key, val in _BF16_PEAK.items():
+        if key in name:
+            return val
+    raise RuntimeError(f"no bf16 tensor-core peak known for card {name!r}")
 
 
 def smi() -> str:
@@ -289,14 +329,17 @@ def _bound_ms(flops: float, nbytes: float, card: str) -> tuple[float, str]:
 
 
 def _measure(name, kernel, plain, library, args32, flops, nbytes, card,
-             reps):
+             reps, cast_args=None):
     """Compare in f32 and bf16, time in f32 → the record's numbers.
-    ``args32`` are the f32 operands; the same tensor twice stays shared."""
+    ``args32`` are the f32 operands; the same tensor twice stays shared.
+    ``cast_args``: the indices of the operands the bf16 comparison rounds
+    (default all; the others stay f32)."""
     import torch
     errs, scale = {}, {}
+    idx = range(len(args32)) if cast_args is None else cast_args
     for dt in (torch.float32, torch.bfloat16):
-        cast = {id(a): a.to(dt) for a in args32}
-        args = [cast[id(a)] for a in args32]
+        cast = {id(args32[i]): args32[i].to(dt) for i in idx}
+        args = [cast.get(id(a), a) for a in args32]
         got = kernel(*args)
         want = plain(*args)
         dn = str(dt).removeprefix("torch.")
@@ -402,7 +445,7 @@ def phase_kernels_full(card: str, reps: int) -> dict:
 # --------------------------------------------------------------------------
 # Phase 3
 # --------------------------------------------------------------------------
-def phase_primal(card: str) -> int:
+def phase_primal(card: str) -> tuple[int, tuple]:
     import torch
     from repro_torch.core import complexity
     from repro_torch.data import fmri
@@ -446,6 +489,8 @@ def phase_primal(card: str) -> int:
     check(tuple(rep.weights.shape) == (spec.p, spec.t), "W shape")
     check(ev.significant, "primal fit not significant")
     n_eigh = EncoderConfig().n_folds + 1
+    # The held-out rows and their predictions, for phase 10's Pearson check.
+    heldout = (state.Y_test, state.encoder.predict(state.X_test))
     del state
     free()
     # The fit's eighs are not separable from the pipeline's wall time, so
@@ -464,7 +509,7 @@ def phase_primal(card: str) -> int:
           f"{total_s:.1f} s pipeline [{card}]")
     del M
     free()
-    return launches["xty_folds"]
+    return launches["xty_folds"], heldout
 
 
 # --------------------------------------------------------------------------
@@ -829,8 +874,7 @@ def phase_backbone_kernels_full(card: str, reps: int) -> dict:
     pairs = S * (S + 1) / 2                        # causal (query, key) pairs
     half = 2.0 * bh * K * pairs                    # FLOPs of each product
     f32_peak, bw = peaks(card)
-    bf16_peak = next(v_ for k_, v_ in _BF16_PEAK.items() if k_ in card)
-    t_ops = half / bf16_peak + half / f32_peak
+    t_ops = half / bf16_peak(card) + half / f32_peak
     t_bytes = 4 * bh * S * K * q.element_size() / bw   # q, k, v; o written
     bound = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
@@ -900,15 +944,18 @@ def _backbone(kernels: bool, dtype):
     return cfg, build_model(cfg)
 
 
+def _counted():
+    from repro_torch.kernels import attention, gram, pearsonr, ridge_solve, ssd
+    return (attention, gram, pearsonr, ridge_solve, ssd)
+
+
 def _reset_counters() -> None:
-    from repro_torch.kernels import attention, gram, ssd
-    for mod in (attention, gram, ssd):
+    for mod in _counted():
         mod.reset_launches()
 
 
 def _counters() -> dict:
-    from repro_torch.kernels import attention, gram, ssd
-    return {**gram.LAUNCHES, **attention.LAUNCHES, **ssd.LAUNCHES}
+    return {k: v for mod in _counted() for k, v in mod.LAUNCHES.items()}
 
 
 def phase_backbone_f32_paths(card: str) -> None:
@@ -1104,6 +1151,378 @@ def _profile_forward(model, params, batch, fwd_s: float, card: str) -> None:
               f"×{count:<5d} {name[:110]}")
 
 
+# --------------------------------------------------------------------------
+# Phase 10
+# --------------------------------------------------------------------------
+def _refuses(fn, *args) -> bool:
+    try:
+        fn(*args)
+    except ValueError:
+        return True
+    return False
+
+
+def _pearson_pair(n, t, g):
+    """(y_true, y_pred = ½·y_true + ½·noise) with column 0 of y_pred
+    constant (a power of two, so Σcy = c·Σy exactly in f32 and r = 0) and
+    column 1 the negated y_true (r = −1)."""
+    import torch
+    yt = torch.randn(n, t, device="cuda", generator=g)
+    yp = torch.randn(n, t, device="cuda", generator=g)
+    yp.mul_(0.5).add_(yt, alpha=0.5)
+    yp[:, 0] = 2.0
+    yp[:, 1] = -yt[:, 1]
+    return yt, yp
+
+
+def phase_seed_kernels_small() -> None:
+    import torch
+    from repro_torch.kernels import pearsonr, ref, ridge_solve
+
+    g = torch.Generator("cuda").manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).removeprefix("torch.")
+        # tests/test_kernels.py::SHAPES_SOLVE (p, t, r), and edge sizes.
+        for p, t, r in [(32, 24, 3), (130, 70, 11), (256, 128, 4), (1, 1, 1),
+                        (257, 3, 2)]:
+            Q, _ = torch.linalg.qr(randn(p, p))
+            ev = randn(p).abs() * 10 + 0.1
+            a = randn(p, t).to(dt)
+            lams = torch.logspace(-1, 3, r, device="cuda")
+            errs = []
+            for layout, q in (("row", Q.contiguous()),
+                              ("column", Q.T.contiguous().T)):
+                q = q.to(dt)
+                check(p == 1 or q.is_contiguous() == (layout == "row"),
+                      f"{layout}-major Q has strides {q.stride()}")
+                err, _ = _compare(
+                    f"solve_lambda_grid{(p, t, r)} {layout}-major Q",
+                    ridge_solve.solve_lambda_grid(q, ev, a, lams),
+                    ref.solve_lambda_grid(q, ev, a, lams), dn)
+                errs.append(err)
+            print(f"[seed-kernels] solve_lambda_grid p={p} t={t} r={r} {dn}: "
+                  f"max abs err row-major Q {errs[0]:.3e}, column-major "
+                  f"{errs[1]:.3e} ok")
+        for n, t in [(50, 17), (1000, 128), (333, 257), (1, 5), (7, 3)]:
+            yt, yp = _pearson_pair(n, t, g)
+            yt, yp = yt.to(dt), yp.to(dt)
+            got = pearsonr.pearson_r(yt, yp)
+            err, _ = _compare(f"pearson_r{(n, t)}", got,
+                              ref.pearson_r(yt, yp), dn)
+            check(torch.equal(got, pearsonr.pearson_r(yt, yp)),
+                  f"pearson_r{(n, t)}: repeated launches differ")
+            check(got[0].item() == 0.0, f"constant column: r={got[0]}")
+            check(n == 1 or abs(got[1].item() + 1.0) <= 1e-4,
+                  f"anti-correlated column: r={got[1]}")
+            print(f"[seed-kernels] pearson_r n={n} t={t} {dn}: max abs err "
+                  f"{err:.3e}, constant column r=0, anti-correlated r="
+                  f"{got[1].item():.6f}, repeated launch bitwise equal ok")
+    # The wrappers refuse what the kernels do not take.
+    q, e, a, lm = (torch.eye(4, device="cuda"), torch.ones(4, device="cuda"),
+                   torch.ones(4, 3, device="cuda"),
+                   torch.ones(2, device="cuda"))
+    for bad in ((q.cpu(), e, a, lm), (q[:3], e, a, lm), (q.double(), e, a, lm),
+                (q, e.bfloat16(), a, lm), (q, e, a.T.contiguous().T, lm),
+                (q.bfloat16(), e, a, lm)):
+        check(_refuses(ridge_solve.solve_lambda_grid, *bad),
+              "solve_lambda_grid accepted an operand it must refuse")
+    y = torch.ones(8, 4, device="cuda")
+    for bad in ((y, y[:7]), (y, y.T.contiguous().T), (y.double(), y.double()),
+                (y, y.bfloat16()), (y.cpu(), y.cpu())):
+        check(_refuses(pearsonr.pearson_r, *bad),
+              "pearson_r accepted an operand it must refuse")
+
+
+def phase_seed_kernels_full(card: str, heldout, reps: int
+                            ) -> tuple[dict, int]:
+    import torch
+    from repro_torch.core import complexity, ridge, scoring
+    from repro_torch.kernels import ops, pearsonr, ref, ridge_solve
+
+    g = torch.Generator("cuda").manual_seed(15)
+    rec = {}
+    # solve_lambda_grid at one primal split of the parcels fit: Q and Λ of
+    # an eigh (as the seed path's factorize gives them), A = Qᵀ·XᵀY (p, t).
+    w = complexity.PAPER_WORKLOADS["parcels"]
+    p, t = w.p, w.t
+    lams = torch.tensor(ridge.PAPER_LAMBDA_GRID, device="cuda")
+    r = lams.numel()
+    B = torch.randn(p, p, device="cuda", generator=g)
+    M = B @ B.T / p
+    del B
+    M.diagonal().add_(1.0)
+    ev, Q = torch.linalg.eigh(M)
+    del M
+    eigh_strides = Q.stride()
+    if Q.stride() != (1, p):
+        Q = Q.T.contiguous().T
+    a = torch.matmul(Q.T, torch.randn(p, t, device="cuda", generator=g))
+
+    def lib_solve(q, e, a_, lm):
+        return torch.matmul(q, a_[None] * (1.0 / (e[None] + lm[:, None])
+                                           )[:, :, None])
+
+    flops = 2.0 * r * p * p * t
+    nbytes = 4.0 * (p * p + p * t + r * p * t + p + r)
+    rec["solve_lambda_grid"] = _measure(
+        f"solve_lambda_grid r={r} p={p} t={t} column-major Q",
+        ridge_solve.solve_lambda_grid, ref.solve_lambda_grid, lib_solve,
+        (Q, ev, a, lams), flops, nbytes, card, reps, cast_args=(0, 2))
+    Qr = Q.contiguous()
+    err_r, _ = _compare("solve_lambda_grid row-major Q",
+                        ridge_solve.solve_lambda_grid(Qr, ev, a, lams),
+                        ref.solve_lambda_grid(Q, ev, a, lams), "float32")
+    row_ms = time_ms(lambda: ridge_solve.solve_lambda_grid(Qr, ev, a, lams),
+                     reps)
+    print(f"[seed-kernels] solve_lambda_grid: eigh returned Q with strides "
+          f"{eigh_strides}; on a row-major copy {row_ms:.3f} ms (max abs err "
+          f"{err_r:.3e}) against {rec['solve_lambda_grid']['ms']:.3f} ms read "
+          f"in place column-major [{card}]")
+    del Q, Qr, ev, a, lams
+    free()
+
+    # pearson_r at the whole-brain evaluation: the held-out 10% of the rows
+    # rows_before_split(69,202) generates × the paper's 264,805 targets.
+    n, T = rows_before_split(w.n) - w.n, WHOLE_BRAIN_T
+    yt, yp = _pearson_pair(n, T, g)
+    torch.cuda.synchronize()
+    # The entry point a user calls, counted alone.
+    _reset_counters()
+    got = ops.pearson_r(yt, yp)
+    torch.cuda.synchronize()
+    launches = _counters()
+    check(launches["pearson_r"] == 1 and sum(launches.values()) == 1,
+          f"ops.pearson_r launches {launches}")
+    want = ref.pearson_r(yt, yp)
+    err, scale = _compare(f"pearson_r n={n} t={T}", got, want, "float32")
+    del want
+    check(got[0].item() == 0.0 and abs(got[1].item() + 1.0) <= 1e-4,
+          f"constant / anti-correlated columns: r={got[:2].tolist()}")
+    check(torch.equal(got, pearsonr.pearson_r(yt, yp)),
+          "pearson_r: repeated launches differ")
+    ms = time_ms(lambda: pearsonr.pearson_r(yt, yp), reps * 10)
+    plain_ms = time_ms(lambda: ref.pearson_r(yt, yp), reps)
+    bound, by = _bound_ms(8.0 * n * T, 4.0 * (2 * n * T + T), card)
+    # bf16 inputs: rounded copies, the f32 ones freed first.
+    yt16, yp16 = yt.bfloat16(), yp.bfloat16()
+    del yt, yp, got
+    free()
+    err16, _ = _compare(f"pearson_r n={n} t={T}",
+                        pearsonr.pearson_r(yt16, yp16),
+                        ref.pearson_r(yt16, yp16), "bfloat16")
+    ms16 = time_ms(lambda: pearsonr.pearson_r(yt16, yp16), reps * 10)
+    bound16, _ = _bound_ms(8.0 * n * T, 2.0 * 2 * n * T + 4.0 * T, card)
+    del yt16, yp16
+    free()
+    print(f"[seed-kernels] pearson_r n={n} t={T}: max abs err f32 {err:.3e}, "
+          f"bf16 {err16:.3e} (tol {REL_TOL:g}·max|plain|, max|plain| "
+          f"{scale:.4e}); kernel {ms:.3f} ms ({2 * 4 * n * T / ms / 1e6:.1f} "
+          f"GB/s; bf16 inputs {ms16:.3f} ms, bound {bound16:.3f} ms), plain "
+          f"{plain_ms:.3f} ms, library none, bound {bound:.3f} ms ({by}) "
+          f"[{card}]")
+    rec["pearson_r"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+
+    # Phase 3's held-out rows: the kernel against the centred formula the
+    # estimator scores with, at the reference test's tolerance.
+    Y_test, Y_pred = (v.contiguous() for v in heldout)
+    r_k = pearsonr.pearson_r(Y_test, Y_pred)
+    r_c = scoring.pearson_r(Y_test, Y_pred)
+    err_p, _ = _compare(f"pearson_r held-out {tuple(Y_test.shape)}", r_k,
+                        ref.pearson_r(Y_test, Y_pred), "float32")
+    d = (r_k - r_c).abs().max().item()
+    print(f"[seed-kernels] pearson_r on phase 3's held-out rows "
+          f"{tuple(Y_test.shape)}: mean r {r_k.mean().item():.4f}; max "
+          f"|kernel − centred scoring.pearson_r| {d:.3e} (rtol/atol "
+          f"{PEARSON_CENTRED_TOL:g}), max |kernel − plain| {err_p:.3e} ok "
+          f"[{card}]")
+    check(bool(torch.allclose(r_k, r_c, rtol=PEARSON_CENTRED_TOL,
+                              atol=PEARSON_CENTRED_TOL)),
+          f"held-out r: kernel vs centred formula max|Δ| {d:.3e}")
+    return rec, launches["pearson_r"]
+
+
+# --------------------------------------------------------------------------
+# Phase 11
+# --------------------------------------------------------------------------
+def _seed_breakdown(X, Y, cfg):
+    """``ridge_cv_reference``'s steps with the port's own functions, the
+    device synchronised after each → (seconds by stage, CV curve, W)."""
+    import torch
+    from repro_torch.core import foldstats, ridge
+
+    sec = dict.fromkeys(("gram+eigh", "XtY", "solve_lambda_grid",
+                         "predict+score", "refit"), 0.0)
+
+    def lap(key, t0):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        sec[key] += now - t0
+        return now
+
+    scores = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo, hi in foldstats.fold_bounds(X.shape[0], cfg.n_folds):
+        X_tr = torch.cat([X[:lo], X[hi:]])
+        factors = ridge.factorize(X_tr, cfg)
+        t0 = lap("gram+eigh", t0)
+        rhs = ridge.gram_xty(X_tr, torch.cat([Y[:lo], Y[hi:]]))
+        del X_tr
+        t0 = lap("XtY", t0)
+        Ws = ridge.solve_lambda_grid(factors, rhs, cfg.lambdas,
+                                     use_pallas=cfg.use_pallas)
+        del factors, rhs
+        t0 = lap("solve_lambda_grid", t0)
+        preds = torch.einsum("np,rpt->rnt", X[lo:hi].float(), Ws)
+        scores.append(ridge._score(Y[lo:hi], preds, cfg.scoring))
+        del Ws, preds
+        t0 = lap("predict+score", t0)
+    cv = torch.stack(scores).mean(0)
+    lam = ridge._lambda_grid(cfg, X.device)[torch.argmax(cv)]
+    W = ridge.solve(ridge.factorize(X, cfg), ridge.gram_xty(X, Y), lam)
+    lap("refit", t0)
+    return sec, cv, W
+
+
+def phase_seed_primal(card: str) -> int:
+    import numpy as np
+    import torch
+    from repro_torch.core import complexity, ridge
+    from repro_torch.data import fmri
+    from repro_torch.kernels import ops, ref
+
+    w = complexity.PAPER_WORKLOADS["parcels"]
+    g = torch.Generator("cuda").manual_seed(16)
+    X, Y, _ = fmri.generate(fmri.SubjectSpec(n=w.n, p=w.p, t=w.t), g,
+                            device="cuda")
+    cfg = ridge.RidgeCVConfig(use_pallas=True)
+    # Keep the operands and output of the first solve launch: it is held
+    # against the plain version after the run.
+    first = {}
+    solve = ops.solve_lambda_grid
+
+    def keep_first(q, evals, a, lambdas):
+        out = solve(q, evals, a, lambdas)
+        if not first:
+            first.update(args=(q, evals, a, lambdas), out=out)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    ops.solve_lambda_grid = keep_first
+    try:
+        t0 = time.perf_counter()
+        seed = ridge.ridge_cv_reference(X, Y, cfg)
+        torch.cuda.synchronize()
+        seed_s = time.perf_counter() - t0
+    finally:
+        ops.solve_lambda_grid = solve
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"solve_lambda_grid": cfg.n_folds, "xty": cfg.n_folds + 1}
+    check(launches == {**dict.fromkeys(launches, 0), **want},
+          f"seed path launches {launches}, want {want}")
+    err, scale = _compare("the seed path's first solve_lambda_grid launch",
+                          first["out"], ref.solve_lambda_grid(*first["args"]),
+                          "float32")
+    q_strides = first["args"][0].stride()
+    first.clear()
+    free()
+    _reset_counters()
+    t0 = time.perf_counter()
+    new = ridge.ridge_cv(X, Y, cfg)
+    torch.cuda.synchronize()
+    new_s = time.perf_counter() - t0
+    new_launches = _counters()
+    check(new_launches["xty_folds"] == 1, f"ridge_cv launches {new_launches}")
+    lam_s, lam_n = float(seed.best_lambda), float(new.best_lambda)
+    dw = (seed.weights - new.weights).abs().max().item()
+    dcv = (seed.cv_scores - new.cv_scores).abs().max().item()
+    print(f"[seed-primal] ridge_cv_reference n={w.n} p={w.p} t={w.t} "
+          f"use_pallas: {seed_s:.2f} s, launches {launches}, λ={lam_s:g}, "
+          f"peak device memory {peak / 2**30:.2f} GiB; its first "
+          f"solve_lambda_grid (Q strides {q_strides}) against "
+          f"ref.solve_lambda_grid on its operands: max abs err {err:.3e} "
+          f"(tol {REL_TOL:g}·max|plain|, max|plain| {scale:.4e}) [{card}]")
+    print(f"[seed-primal] ridge_cv (downdated fold statistics) on the same "
+          f"tensors: {new_s:.2f} s, launches {new_launches}, λ={lam_n:g}; "
+          f"seed − downdate {seed_s - new_s:.2f} s; max|ΔW| {dw:.3e} (rtol/"
+          f"atol {SEED_W_TOL:g}), max|Δcv| {dcv:.3e} (rtol/atol "
+          f"{SEED_CV_TOL:g}) [{card}]")
+    check(lam_s == lam_n, f"λ seed {lam_s} != ridge_cv {lam_n}")
+    np.testing.assert_allclose(seed.cv_scores.cpu().numpy(),
+                               new.cv_scores.cpu().numpy(), rtol=SEED_CV_TOL,
+                               atol=SEED_CV_TOL)
+    np.testing.assert_allclose(seed.weights.cpu().numpy(),
+                               new.weights.cpu().numpy(), rtol=SEED_W_TOL,
+                               atol=SEED_W_TOL)
+    check(bool(torch.isfinite(seed.weights).all()), "seed W non-finite")
+    del new
+    free()
+    sec, cv_b, W_b = _seed_breakdown(X, Y, cfg)
+    total = sum(sec.values())
+    same = (torch.equal(cv_b, seed.cv_scores)
+            and torch.equal(W_b, seed.weights))
+    print(f"[seed-primal] time split (the same steps, synchronised after "
+          f"each; {total:.2f} s in all, result bitwise equal to the entry "
+          f"point's: {same}): " + ", ".join(
+              f"{k} {v:.2f} s ({100 * v / total:.1f}%)"
+              for k, v in sec.items()) + f" [{card}]")
+    check(torch.allclose(cv_b, seed.cv_scores, rtol=1e-5, atol=1e-6),
+          "the timed steps give another CV curve than the entry point")
+    del X, Y, seed, W_b
+    free()
+    return launches["solve_lambda_grid"]
+
+
+def phase_seed_dual(card: str) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core import complexity, ridge
+    from repro_torch.data import fmri
+
+    w = complexity.PAPER_WORKLOADS["whole_brain_mor"]
+    g = torch.Generator("cuda").manual_seed(17)
+    X, Y, _ = fmri.generate(fmri.SubjectSpec(n=w.n, p=w.p, t=w.t), g,
+                            device="cuda")
+    cfg = ridge.RidgeCVConfig(use_pallas=True)
+    _reset_counters()
+    t0 = time.perf_counter()
+    kern = ridge.ridge_cv_reference(X, Y, cfg)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    launches = _counters()
+    t0 = time.perf_counter()
+    plain = ridge.ridge_cv_reference(X, Y, ridge.RidgeCVConfig())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    # Per split one XXᵀ and one Xᵀα per λ; then the refit's XXᵀ.
+    want = cfg.n_folds * (1 + len(cfg.lambdas)) + 1
+    dw = (kern.weights - plain.weights).abs().max().item()
+    print(f"[seed-dual] ridge_cv_reference n={w.n} p={w.p} t={w.t}: kernel "
+          f"tier {kern_s:.3f} s, launches {launches}; plain {plain_s:.3f} s; "
+          f"λ {float(kern.best_lambda):g} vs {float(plain.best_lambda):g}, "
+          f"max|ΔW| {dw:.3e} (rtol 1e-4, atol 2e-4) [{card}]")
+    check(launches == {**dict.fromkeys(launches, 0), "xty": want},
+          f"dual seed path launches {launches}, want xty={want}")
+    check(float(kern.best_lambda) == float(plain.best_lambda),
+          "dual seed path: λ kernel tier != plain")
+    np.testing.assert_allclose(kern.weights.cpu().numpy(),
+                               plain.weights.cpu().numpy(), rtol=1e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(kern.cv_scores.cpu().numpy(),
+                               plain.cv_scores.cpu().numpy(), rtol=1e-4,
+                               atol=2e-4)
+    del X, Y, kern, plain
+    free()
+
+
 def main() -> int:
     import torch
 
@@ -1115,9 +1534,11 @@ def main() -> int:
     card = env["card"]
     phase_kernels_small()
     phase_backbone_kernels_small()
+    phase_seed_kernels_small()
     rec = phase_kernels_full(card, reps=3)
-    launches = {"xty_folds": phase_primal(card),
-                "xty": phase_dual(card)}
+    launches = {}
+    launches["xty_folds"], heldout = phase_primal(card)
+    launches["xty"] = phase_dual(card)
     phase_paths()
     launches["xty_folds_masked"] = phase_streamed(card)
     rec.update(phase_backbone_kernels_full(card, reps=3))
@@ -1125,6 +1546,12 @@ def main() -> int:
     backbone = phase_backbone(card)
     launches.update(flash_attention=backbone["flash_attention"],
                     ssd_intra=backbone["ssd_intra"])
+    seed_rec, launches["pearson_r"] = phase_seed_kernels_full(card, heldout,
+                                                              reps=3)
+    rec.update(seed_rec)
+    del heldout
+    launches["solve_lambda_grid"] = phase_seed_primal(card)
+    phase_seed_dual(card)
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("gram.cu", "src/repro/kernels/gram.py:158"),
              "xty": ("gram.cu", "src/repro/kernels/gram.py:72"),
@@ -1132,7 +1559,10 @@ def main() -> int:
                                   "src/repro/kernels/gram.py:233"),
              "flash_attention": ("flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:124"),
-             "ssd_intra": ("ssd.cu", "src/repro/kernels/ssd.py:69")}
+             "ssd_intra": ("ssd.cu", "src/repro/kernels/ssd.py:69"),
+             "pearson_r": ("pearsonr.cu", "src/repro/kernels/pearsonr.py:71"),
+             "solve_lambda_grid": ("ridge_solve.cu",
+                                   "src/repro/kernels/ridge_solve.py:72")}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": replaces, "launches": launches[name],
                 **{k: rec[name][k] for k in ("max_abs_err", "ms", "plain_ms",

@@ -4,6 +4,7 @@
   foldstats.compute / FoldStatsAccumulator — single-pass fold statistics
                                            (downdating CV, out-of-core)
   ridge.ridge_cv_from_stats              — CV'd solve from streamed stats
+  ridge.ridge_cv_reference               — seed per-fold CV (the baseline)
   scoring.pearson_r                      — encoding performance metric
   complexity                             — analytic cost model (paper §3)
 """

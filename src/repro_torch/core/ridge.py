@@ -6,15 +6,19 @@ downdated Gram of every split and the full-data Gram with
 ``K = XXᵀ``.  The λ sweep stays a diagonal rescale in the eigenbasis, and
 the r² CV score uses the trace identity so no per-λ prediction is
 materialised.  ``ridge_cv_from_stats`` runs the primal CV on streamed fold
-statistics alone, scoring each split from its sufficient statistics.  With ``use_pallas`` the cross-Gram products go through the
-CUDA kernels (``kernels.ops``), without it through their plain versions
-(``kernels.ref``); the remaining large products are plain ``torch.matmul``
-in f32, as the reference leaves them to XLA.
+statistics alone, scoring each split from its sufficient statistics.
+``ridge_cv_reference`` is the seed per-fold path (the paper's Algorithm 1
+as written: every split re-accumulates its Gram and refactorises), kept as
+the yardstick of the downdate.  With ``use_pallas`` the cross-Gram products
+and the seed path's λ sweep go through the CUDA kernels (``kernels.ops``),
+without it through their plain versions (``kernels.ref``); the remaining
+large products are plain ``torch.matmul`` in f32, as the reference leaves
+them to XLA.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, Sequence
 
 import torch
 
@@ -66,6 +70,11 @@ class RidgeCVResult:
     cv_scores: torch.Tensor     # (r,) mean validation score per λ
 
 
+def gram(X: torch.Tensor) -> torch.Tensor:
+    """``XᵀX`` with f32 accumulation (plain)."""
+    return ref.gram(X)
+
+
 def gram_xty(X: torch.Tensor, Y: torch.Tensor, *,
              use_pallas: bool = False) -> torch.Tensor:
     """``XᵀY`` with f32 accumulation (kernel-routable)."""
@@ -87,6 +96,26 @@ def xxt(X: torch.Tensor, *, use_pallas: bool = False) -> torch.Tensor:
     return ref.xty(X.T, X.T)
 
 
+def factorize(X: torch.Tensor, cfg: RidgeCVConfig) -> RidgeFactors:
+    """Factorise ``X`` once; reused for every λ and every target (Eq. 4-5).
+
+    Primal: ``eigh(XᵀX + jitter·I)``, the Gram through the kernel with
+    ``use_pallas``.  Dual: ``eigh(XXᵀ + jitter·I)``.  The jitter is added to
+    the fresh Gram's diagonal in place (the same sums as adding
+    ``jitter·I``, without a p×p identity and a second p×p matrix).
+    """
+    n, p = X.shape
+    if cfg.resolve_method(n, p) == "eigh":
+        G = ops.gram(X.contiguous()) if cfg.use_pallas else gram(X)
+        primal = True
+    else:
+        G = xxt(X, use_pallas=cfg.use_pallas)
+        primal = False
+    G.diagonal().add_(cfg.jitter)
+    evals, B = torch.linalg.eigh(G)
+    return RidgeFactors(basis=B, evals=evals, primal=primal)
+
+
 def solve(factors: RidgeFactors, XtY_or_Y: torch.Tensor, lam: torch.Tensor,
           X: torch.Tensor | None = None,
           use_pallas: bool = False) -> torch.Tensor:
@@ -105,6 +134,36 @@ def solve(factors: RidgeFactors, XtY_or_Y: torch.Tensor, lam: torch.Tensor,
     if X is None:
         raise ValueError("dual solve needs X to map dual coeffs to weights")
     return gram_xty(X, out, use_pallas=use_pallas)
+
+
+def solve_lambda_grid(factors: RidgeFactors, XtY_or_Y: torch.Tensor,
+                      lambdas: Sequence[float] | torch.Tensor,
+                      X: torch.Tensor | None = None,
+                      use_pallas: bool = False) -> torch.Tensor:
+    """All-λ solve, stacked on a leading axis: (r, p, t).
+
+    The rotation into the eigenbasis (``BᵀXᵀY`` or ``BᵀY``) is shared across
+    the grid — the mutualisation of paper Eq. 5, where only the diagonal
+    ``(S²+λI)⁻¹`` depends on λ.  Primal with ``use_pallas``: ``A = QᵀXᵀY``
+    as a plain product, then the fused rescale-and-product kernel
+    (``ops.solve_lambda_grid``).  Dual with ``use_pallas``: one ``Xᵀα_r``
+    kernel product per λ.
+    """
+    B = factors.basis
+    lams = torch.as_tensor(lambdas, dtype=torch.float32, device=B.device)
+    z = torch.matmul(B.T, XtY_or_Y.float())
+    if use_pallas and factors.primal:
+        return ops.solve_lambda_grid(B, factors.evals, z, lams)
+    zs = z[None, :, :] / (factors.evals[None, :, None] + lams[:, None, None])
+    out = torch.einsum("ij,rjt->rit", B, zs)
+    if factors.primal:
+        return out
+    if X is None:
+        raise ValueError("dual solve needs X to map dual coeffs to weights")
+    if use_pallas:
+        return torch.stack([gram_xty(X, out[r], use_pallas=True)
+                            for r in range(out.shape[0])])
+    return torch.einsum("ni,rnt->rit", X.float(), out)
 
 
 def _score(Y_true: torch.Tensor, Y_pred: torch.Tensor, kind: str
@@ -235,6 +294,12 @@ def _ridge_cv_dual(X: torch.Tensor, Y: torch.Tensor,
                          cv_scores=cv_scores)
 
 
+def _check_kernel_tier(X: torch.Tensor, cfg: RidgeCVConfig) -> None:
+    if cfg.use_pallas and X.device.type != "cuda":
+        raise ValueError(f"use_pallas=True needs CUDA tensors, got "
+                         f"{X.device}")
+
+
 def ridge_cv(X: torch.Tensor, Y: torch.Tensor,
              cfg: RidgeCVConfig = RidgeCVConfig()) -> RidgeCVResult:
     """Cross-validated multi-target ridge — scikit-learn ``RidgeCV`` analog.
@@ -245,9 +310,7 @@ def ridge_cv(X: torch.Tensor, Y: torch.Tensor,
     full data.
     """
     n, p = X.shape
-    if cfg.use_pallas and X.device.type != "cuda":
-        raise ValueError(f"use_pallas=True needs CUDA tensors, got "
-                         f"{X.device}")
+    _check_kernel_tier(X, cfg)
     if cfg.resolve_method(n, p) == "eigh":
         return _ridge_cv_primal(X, Y, cfg)
     return _ridge_cv_dual(X, Y, cfg)
@@ -287,6 +350,48 @@ def ridge_cv_from_stats(stats: foldstats.FoldStats,
     evals, Q = torch.linalg.eigh(stats.G_total + eye)
     factors = RidgeFactors(basis=Q, evals=evals, primal=True)
     W = solve(factors, stats.C_total, lams[best])
+    return RidgeCVResult(weights=W, best_lambda=lams[best], best_index=best,
+                         cv_scores=cv_scores)
+
+
+def ridge_cv_reference(X: torch.Tensor, Y: torch.Tensor,
+                       cfg: RidgeCVConfig = RidgeCVConfig()) -> RidgeCVResult:
+    """Seed implementation: per-fold re-accumulation (baseline, kept on
+    purpose).
+
+    For every split this concatenates the training rows and recomputes their
+    Gram/kernel from scratch — ``(k−1)·np²`` of redundant work that
+    ``ridge_cv`` derives by downdating — then sweeps the λ grid with
+    ``solve_lambda_grid`` and scores the materialised (r, v, t) predictions.
+    With ``use_pallas`` three things go through kernels, as in the
+    reference: the Gram inside ``factorize`` (or the dual ``XXᵀ``), and the
+    λ sweep (or the dual ``Xᵀα`` per λ); the training cross-product
+    ``XᵀY`` and the refit's solve stay plain.
+    """
+    _check_kernel_tier(X, cfg)
+    bounds = foldstats.fold_bounds(X.shape[0], cfg.n_folds)
+    per_lambda_scores = []
+    for lo, hi in bounds:
+        X_val, Y_val = X[lo:hi], Y[lo:hi]
+        X_tr = torch.cat([X[:lo], X[hi:]])
+        Y_tr = torch.cat([Y[:lo], Y[hi:]])
+        factors = factorize(X_tr, cfg)
+        rhs = gram_xty(X_tr, Y_tr) if factors.primal else Y_tr
+        Ws = solve_lambda_grid(factors, rhs, cfg.lambdas,
+                               X=None if factors.primal else X_tr,
+                               use_pallas=cfg.use_pallas)
+        del factors, X_tr, Y_tr
+        preds = torch.einsum("np,rpt->rnt", X_val.float(), Ws)
+        del Ws
+        per_lambda_scores.append(_score(Y_val, preds, cfg.scoring))
+        del preds
+    cv_scores = torch.stack(per_lambda_scores).mean(0)              # (r,)
+    best = torch.argmax(cv_scores)
+    lams = _lambda_grid(cfg, X.device)
+    # Refit on the full data with the selected λ.
+    factors = factorize(X, cfg)
+    rhs = gram_xty(X, Y) if factors.primal else Y
+    W = solve(factors, rhs, lams[best], X=None if factors.primal else X)
     return RidgeCVResult(weights=W, best_lambda=lams[best], best_index=best,
                          cv_scores=cv_scores)
 

@@ -120,6 +120,19 @@ def load() -> ctypes.CDLL:
         # cb, la, x, out, N, Q, H, P, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
         fn.restype = i32
+    for name in ("repro_solve_lambda_grid_f32",
+                 "repro_solve_lambda_grid_bf16"):
+        fn = getattr(lib, name)
+        # q, q strides (2), evals, a, lambdas, scales, out, p, t, r, device,
+        # stream
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,
+                       i32, ptr]
+        fn.restype = i32
+    for name in ("repro_pearson_r_f32", "repro_pearson_r_bf16"):
+        fn = getattr(lib, name)
+        # y_true, y_pred, partial, out, n, t, splits, device, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+        fn.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

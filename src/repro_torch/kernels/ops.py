@@ -2,8 +2,9 @@
 
 Port of ``repro/kernels/ops.py``.  The route is the tensor's device: a CPU
 tensor goes to the plain version (``kernels.ref``), a CUDA tensor to the
-hand-written kernel (``kernels.gram``, ``kernels.attention``,
-``kernels.ssd``), which launches or raises.
+hand-written kernel (``kernels.gram``, ``kernels.ridge_solve``,
+``kernels.pearsonr``, ``kernels.attention``, ``kernels.ssd``), which
+launches or raises.
 """
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ import torch
 
 from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import pearsonr as _pearsonr
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ridge_solve as _ridge_solve
 from repro_torch.kernels import ssd as _ssd
 
 
@@ -50,6 +53,31 @@ def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
     if x.device.type == "cpu":
         return _ref.xty_folds_masked(x, z, onehot)
     return _gram.xty_folds_masked(x, z, onehot)
+
+
+def solve_lambda_grid(q: torch.Tensor, evals: torch.Tensor, a: torch.Tensor,
+                      lambdas: torch.Tensor) -> torch.Tensor:
+    """Fused multi-λ eigenbasis solve.  (p,p), (p,), (p,t), (r,) → (r,p,t)."""
+    if q.device.type == "cpu":
+        return _ref.solve_lambda_grid(q, evals, a, lambdas)
+    return _ridge_solve.solve_lambda_grid(q, evals, a, lambdas)
+
+
+def pearson_r(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """Per-target Pearson correlation.  (n, t) × (n, t) → (t,)."""
+    if y_true.device.type == "cpu":
+        return _ref.pearson_r(y_true, y_pred)
+    return _pearsonr.pearson_r(y_true, y_pred)
+
+
+def pearson_sums(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """The kernel's five running sums, plain.  (n, t) × 2 → (5, t)."""
+    return _pearsonr.pearson_sums(y_true, y_pred)
+
+
+def pearson_r_from_sums(sums, n_true):
+    """Finalise r from accumulated sums (numpy or torch, dtype kept)."""
+    return _pearsonr.pearson_r_from_sums(sums, n_true)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -10,6 +10,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels.pearsonr import pearson_r_from_sums, pearson_sums
+
 
 def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``XᵀY`` in f32.  (n, p), (n, q) → (p, q)."""
@@ -102,3 +104,23 @@ def ssd_intra(cb: torch.Tensor, la: torch.Tensor,
                                  device=cb.device))[None, :, :, None]
     decay = torch.exp(torch.where(mask, diff, -torch.inf))
     return torch.einsum("nqkh,nkhp->nqhp", decay * cb[:, :, :, None], x)
+
+
+def solve_lambda_grid(q: torch.Tensor, evals: torch.Tensor, a: torch.Tensor,
+                      lambdas: torch.Tensor) -> torch.Tensor:
+    """``out[r] = Q · diag(1/(Λ+λ_r)) · A`` in f32, as the reference's oracle
+    (``repro/kernels/ref.py:18``): the (r, p, t) rescaled operand is
+    materialised, then contracted with ``Q``.  q (p, p) in any layout,
+    evals (p,), a (p, t), lambdas (r,) → (r, p, t) float32."""
+    scale = 1.0 / (evals.float()[None, :] + lambdas.float()[:, None])  # (r, p)
+    scaled = a.float()[None, :, :] * scale[:, :, None]                 # (r,p,t)
+    return torch.einsum("ik,rkt->rit", q.float(), scaled)
+
+
+def pearson_r(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """Per-target Pearson r by the kernel's single-pass raw-sums formula
+    (``repro/kernels/pearsonr.py:44-52``): five f32 column sums, finalised
+    with the true row count.  (n, t) × (n, t) → (t,) float32.  It cancels in
+    f32 where a column's mean is large against its spread, as the Pallas
+    kernel does; the centred formula is ``core.scoring.pearson_r``."""
+    return pearson_r_from_sums(pearson_sums(y_true, y_pred), y_true.shape[0])

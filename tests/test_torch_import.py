@@ -40,9 +40,11 @@ def test_port_has_every_slice_module():
               "repro_torch.models.ssm", "repro_torch.models.hybrid",
               "repro_torch.configs", "repro_torch.configs.zamba2_2_7b",
               "repro_torch.configs.mamba2_130m",
-              "repro_torch.data.synthetic"):
+              "repro_torch.data.synthetic", "repro_torch.kernels.ridge_solve",
+              "repro_torch.kernels.pearsonr"):
         assert m in mods, m
-    for src in ("gram.cu", "flash_attention.cu", "ssd.cu"):
+    for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
+                "pearsonr.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists(), src
 
 

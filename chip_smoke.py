@@ -14,7 +14,9 @@ nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
 2. Each kernel against its plain PyTorch version, f32 and bf16, at small
    ragged shapes and at the main path's full shapes, with times of the
    kernel, the plain version, the nearest library call, and the card's
-   bound for the same work.
+   bound for the same work; ``xty``'s two dual parts each on its own, with
+   ``XXᵀ`` (row-split) beside the unsplit one-fold launch of the same
+   kernel and its repeated launches held bitwise equal.
 3. The primal slice at the paper's full size (``parcels``: n=69,202
    training rows, p=16,384, t=444) through ``pipeline.run``: 76,891 rows
    are generated so that the 90/10 split leaves the fit the paper's
@@ -40,7 +42,9 @@ nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
    bf16), and through ``flash_attention`` on contiguous (B·H, S, K) copies;
    ssd_intra at N=128 chunks, Q=256, H=80, P=64, f32.  Times of the kernel,
    the plain version, the nearest library call (flash:
-   ``scaled_dot_product_attention``, backend named) and the card's bound.
+   ``scaled_dot_product_attention``, backend named) and the card's bound
+   (bf16 flash: the largest of the tensor-core time of Q·Kᵀ and the three
+   split P·V products, the exponentials at the SFU rate, and the bytes).
 8. The full-width, full-depth zamba2-2.7b forward (63 pattern slots,
    d=2,560) in f32 parameters, once with both kernel switches on and once
    with both off: max|Δh| ≤ 1e-3·max|h|.
@@ -390,19 +394,41 @@ def phase_kernels_full(card: str, reps: int) -> dict:
         2.0 * n * p * q, 4.0 * (n * p + n * q + k * p * q), card, reps)
     del X, Z
     free()
-    # Dual: XXᵀ on a contiguous Xᵀ, and Xᵀα, at the whole_brain_mor shape.
+    # Dual: XXᵀ on a contiguous Xᵀ, and Xᵀα, at the whole_brain_mor shape,
+    # each part measured on its own.  XXᵀ's 1,000² output takes the row
+    # split; the unsplit one-fold launch of the same kernel is timed beside
+    # it, in turns (unsplit, split, split, unsplit).
     n, p, t = 1_000, 16_384, 2_000
     X = torch.randn(n, p, device="cuda", generator=g)
     Xt = X.T.contiguous()
     alpha = torch.randn(n, t, device="cuda", generator=g)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = gram.row_splits(p, n, n, sms)
+    check(len(splits) > 1 and gram.row_splits(n, p, t, sms) == [(0, n)],
+          f"row splits: XXᵀ {len(splits)}, Xᵀα "
+          f"{len(gram.row_splits(n, p, t, sms))}")
+    check(torch.equal(gram.xty(Xt, Xt), gram.xty(Xt, Xt)),
+          "two split xty launches on XXᵀ differ")
     parts = [
-        _measure(f"xty XXt x=({p},{n})", gram.xty, ref.xty,
+        _measure(f"xty XXt x=({p},{n}) in {len(splits)} row splits",
+                 gram.xty, ref.xty,
                  lambda x, y: torch.matmul(x.T, y), (Xt, Xt), 2.0 * p * n * n,
                  4.0 * (p * n + n * n), card, reps * 10),
         _measure(f"xty Xt.alpha x=({n},{p}) y=({n},{t})",
                  gram.xty, ref.xty, lambda x, y: torch.matmul(x.T, y),
                  (X, alpha), 2.0 * n * p * t,
                  4.0 * (n * p + n * t + p * t), card, reps * 10)]
+    unsplit = [(0, p)]
+    turns = []
+    for fn in (lambda: gram.xty_folds(Xt, Xt, unsplit),
+               lambda: gram.xty(Xt, Xt), lambda: gram.xty(Xt, Xt),
+               lambda: gram.xty_folds(Xt, Xt, unsplit)):
+        turns.append(time_ms(fn, reps * 10))
+    one, split = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"[kernels] xty XXt: unsplit one-fold launch {turns[0]:.3f}/"
+          f"{turns[3]:.3f} ms, {len(splits)} row splits {turns[1]:.3f}/"
+          f"{turns[2]:.3f} ms (×{one / split:.2f}); split launches bitwise "
+          f"equal [{card}]")
     # One dual fit launches each once: the record sums the two shapes.
     rec["xty"] = {key: sum(pt[key] for pt in parts)
                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -868,16 +894,21 @@ def phase_backbone_kernels_full(card: str, reps: int) -> dict:
     contig_ms = time_ms(lambda: attention.flash_attention(qf, kf, vf), reps)
     plain_ms = time_ms(lambda: ref.mha_flash(q, k, v, n_kv), reps)
     lib_ms = time_ms(lib_fn, reps)
-    # Bound: Q·Kᵀ multiplies two bf16 operands (exact in f32), which the
-    # tensor cores do at the bf16 rate with f32 accumulation; P·V has the
-    # f32 P as an operand, so it needs the f32 rate.
+    # Bound of the bf16 design, the largest of three: the tensor cores run
+    # Q·Kᵀ once and P·V three times (P split exactly into three bf16 terms,
+    # each product exact in f32) at the bf16 rate; one exponential per
+    # visible pair at the SFU rate, 16 a clock per SM at the clock the bf16
+    # peak implies (4,096 FLOP a clock per SM), i.e. peak / 256 a second;
+    # the bytes.  Beside it, the earlier bound with P·V at the f32 rate.
     pairs = S * (S + 1) / 2                        # causal (query, key) pairs
     half = 2.0 * bh * K * pairs                    # FLOPs of each product
     f32_peak, bw = peaks(card)
-    t_ops = half / bf16_peak(card) + half / f32_peak
+    t_tc = 4 * half / bf16_peak(card)
+    t_exp = bh * pairs / (bf16_peak(card) / 256)
+    t_f32_pv = half / bf16_peak(card) + half / f32_peak
     t_bytes = 4 * bh * S * K * q.element_size() / bw   # q, k, v; o written
-    bound = max(t_ops, t_bytes) * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
+    bound = max(t_tc, t_exp, t_bytes) * 1e3
+    by = "operations" if max(t_tc, t_exp) >= t_bytes else "bytes"
     print(f"[backbone-kernels] flash_attention (mha_flash) B={B} S=T={S} "
           f"H={H} n_kv={n_kv} K={K} causal bf16, strided q/k/v: max abs err "
           f"{err:.3e}, (BH,S,K) contiguous {err_f:.3e} (rtol "
@@ -886,8 +917,11 @@ def phase_backbone_kernels_full(card: str, reps: int) -> dict:
           f"kernel {ms:.3f} ms ({2 * half / ms / 1e9:.1f} TFLOP/s; "
           f"contiguous (BH,S,K) {contig_ms:.3f} ms), plain {plain_ms:.3f} "
           f"ms, library {lib_ms:.3f} ms (SDPA {lib_name}, max|SDPA-kernel| "
-          f"{lib_err:.3e}), bound {bound:.3f} ms ({by}: Q·Kᵀ at the bf16 "
-          f"tensor-core rate, P·V at the f32 rate) [{card}]")
+          f"{lib_err:.3e}), bound {bound:.3f} ms ({by}: tensor cores "
+          f"{t_tc * 1e3:.3f} ms for Q·Kᵀ + 3 split P·V at the bf16 rate, "
+          f"exponentials {t_exp * 1e3:.3f} ms at the SFU rate, bytes "
+          f"{t_bytes * 1e3:.3f} ms; with P·V at the f32 rate, the CUDA-core "
+          f"design's bound, {t_f32_pv * 1e3:.3f} ms) [{card}]")
     rec["flash_attention"] = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bound,
                               "bound_by": by, "max_abs_err": err}
@@ -1133,7 +1167,7 @@ def _profile_forward(model, params, batch, fwd_s: float, card: str) -> None:
               f"[{card}]")
         return
     rows.sort(reverse=True)
-    ours = {k: sum(r[0] for r in rows if k + "_kernel" in r[2])
+    ours = {k: sum(r[0] for r in rows if k in r[2])
             for k in ("flash_attention", "ssd_intra")}
     gemm = sum(r[0] for r in rows if any(
         w in r[2].lower() for w in ("gemm", "nvjet", "cutlass", "xmma")))

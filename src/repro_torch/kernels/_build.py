@@ -133,6 +133,9 @@ def load() -> ctypes.CDLL:
         # y_true, y_pred, partial, out, n, t, splits, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
         fn.restype = i32
+    # part, out, count, splits, device, stream
+    lib.repro_xty_split_sum.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.repro_xty_split_sum.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

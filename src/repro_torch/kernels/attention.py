@@ -4,11 +4,13 @@
 Port of ``repro/kernels/flash_attention.py``: ``flash_attention`` takes the
 (BH, S, K) layout and ``mha_flash`` the model layout (B, S, H, K) with
 grouped kv heads (B, T, n_kv, K), read in place (no expansion, no
-transpose: the kernel takes strides).  q is pre-scaled.  Each wrapper takes
-CUDA tensors only, checks them, allocates the output in q's dtype, launches
-on the current stream, raises on a launch error and counts the launch in
-``LAUNCHES``.  ``kernels.ops`` routes CPU tensors to the plain versions in
-``kernels.ref``.
+transpose: the kernel takes strides).  q is pre-scaled.  bf16 operands go
+to the tensor-core kernel (``wgmma``, P·V as three exact bf16 terms), f32
+ones to the CUDA-core kernel: a choice by dtype, not a fallback.  Each
+wrapper takes CUDA tensors only, checks them, allocates the output in q's
+dtype, launches on the current stream, raises on a launch error and counts
+the launch in ``LAUNCHES``.  ``kernels.ops`` routes CPU tensors to the
+plain versions in ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 256
-_MAX_Q_TILES = 65535   # grid.y of the kernel, 64 query rows each
+_MAX_Q_TILES = 65535   # grid.y of the f32 kernel, 64 query rows each
 
 # Launches since the last ``reset_launches()``.
 LAUNCHES: dict[str, int] = {"flash_attention": 0}

@@ -4,8 +4,10 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/gram.py:
 //   * xty_folds (the per-fold [G | C] statistics of core/foldstats.py), and
-//   * xty (XᵀY; the dual path's XXᵀ and Xᵀα), which is the one-fold case
-//     bounds = {(0, n)} of the same kernel;
+//   * xty (XᵀY; the dual path's XXᵀ and Xᵀα), the same kernel over one row
+//     range or, where the output is too small to fill the card, over S
+//     contiguous row ranges whose S partial products a second small kernel
+//     adds in order (kernels/gram.py::row_splits picks S);
 //   * xty_folds_masked (every chunk update of the streamed fit,
 //     foldstats._FixedShapeUpdate): per-slot row weights w (m, s), in
 //     practice a one-hot of each row's fold, applied to x at the load, so
@@ -17,18 +19,28 @@
 // TFLOP/s on an H100 SXM at 700 W) against 4 bytes read per input element.
 // At the main path's shapes (n = 69,202 rows, p = 16,384, q = 16,828) that is
 // ~3.8e13 FLOPs for ~15 GB of traffic: compute-bound by two orders of
-// magnitude.
+// magnitude.  A narrow output is bound by the blocks it can keep busy: the
+// dual fit's XXᵀ (16,384 rows, a 1,000² output) is 64 tiles, under half
+// the 132 SMs at 2 blocks each.
 //
 // What the design does about it:
-//   * Each block owns one (fold, 128-row i tile, 128-column j tile) output
-//     tile and loops over that fold's rows itself.  The TPU kernel carries
-//     its accumulator across a sequential grid axis; Hopper runs blocks in
-//     parallel and in no order, so the row loop lives inside the block.
-//     Nothing is shared between blocks: no atomics, deterministic results.
-//   * Rows are read in place between the fold bounds (int64, passed by
+//   * Each block owns one (row range, 128-row i tile, 128-column j tile)
+//     output tile and loops over that range's rows itself.  The TPU kernel
+//     carries its accumulator across a sequential grid axis; Hopper runs
+//     blocks in parallel and in no order, so the row loop lives inside the
+//     block.  Nothing is shared between blocks: no atomics, deterministic
+//     results.
+//   * xty with fewer than 2 × 132 output tiles cuts the rows into S equal
+//     ranges (tiles × S ≥ 264, each range ≥ 256 rows, S ≤ 64) and launches
+//     the fold kernel with them as its "folds" into an (S, p, q) scratch;
+//     xty_split_sum_kernel adds the S partials in split order.  Repeated
+//     launches are bitwise equal.  A full grid (S = 1) is the one-fold
+//     launch unchanged.
+//   * Rows are read in place between the range bounds (int64, passed by
 //     value as a kernel parameter, so a launch queues no host-to-device
-//     copy and no stream synchronisation).  There is no repack of X into fold-aligned blocks and no
-//     zero padding: ragged n, p and q are masked at the loads and the store.
+//     copy and no stream synchronisation).  There is no repack of X into
+//     fold-aligned blocks and no zero padding: ragged n, p and q are masked
+//     at the loads and the store.
 //   * Register blocking: 256 threads, 8×8 f32 accumulators each, fed from a
 //     double-buffered shared-memory stage of 8 rows × 128 columns per
 //     operand, so each shared-memory float feeds 8 FMAs.  The next stage is
@@ -44,12 +56,12 @@
 //     the streamed fit's shapes (m = 8,192, p = 16,384, q = 16,828, s = 2)
 //     that is 2·s·m·p·q = 9.0e12 FLOPs against ~0.6 GB read: bound by
 //     operations.  All-zero stages are not skipped: the reference keeps
-//     0·Inf and 0·NaN rows as NaN, and so does this kernel.  Skipping them
-//     (roughly halving the work of a chunk that straddles two folds) is
-//     left to a later redesign.
-// Not done yet (later work): wgmma/TMA pipelines are bf16/TF32-only on the
-// tensor cores and do not apply to full f32; a split over rows for the
-// narrow dual XXᵀ (n×n output from p = 16,384 rows) would fill more SMs.
+//     0·Inf and 0·NaN rows as NaN, and so does this kernel.
+// Not done yet (later work): the shared row loop (accumulate_rows) reaches
+// ~43 TFLOP/s of the 67; its redesign (deeper staging, 3xTF32-style exact
+// splits on the tensor cores) and skipping a chunk's all-zero slot stages
+// in the masked kernel.  Xᵀα (2,048 tiles, only 1,000 rows deep) is not
+// split and rests on that engine.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -244,6 +256,37 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_tile(out + slot * p * q, i0, j0, p, q, acc);
 }
 
+// out[i] = part[0][i] + part[1][i] + … + part[splits − 1][i], in that
+// order, for i < count.  grid-stride; float4 when count % 4 == 0.
+__global__ void __launch_bounds__(kThreads)
+    xty_split_sum_kernel(const float* __restrict__ part,
+                         float* __restrict__ out, long long count,
+                         int splits) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if ((count & 3) == 0) {
+    const long long n4 = count >> 2;
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    for (; i < n4; i += stride) {
+      float4 acc = p4[i];
+      for (int s = 1; s < splits; ++s) {
+        const float4 v = p4[s * n4 + i];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      reinterpret_cast<float4*>(out)[i] = acc;
+    }
+  } else {
+    for (; i < count; i += stride) {
+      float acc = part[i];
+      for (int s = 1; s < splits; ++s) acc += part[s * count + i];
+      out[i] = acc;
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* y, const long long* bounds, void* out,
            long long p, long long q, int k, int device, void* stream) {
@@ -316,6 +359,23 @@ int repro_xty_folds_masked_bf16(const void* x, const void* z, const void* w,
                                 void* stream) {
   return launch_masked<__nv_bfloat16>(x, z, w, out, m, p, q, s, device,
                                       stream);
+}
+
+// part: (splits, count) f32, out: (count,) f32; out = Σ_s part[s], added
+// in split order.  Launches on `stream` and returns the cudaGetLastError()
+// code of the launch.
+int repro_xty_split_sum(const void* part, void* out, long long count,
+                        int splits, int device, void* stream) {
+  if (count < 1 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long work = (count & 3) == 0 ? count >> 2 : count;
+  const long long blocks = (work + kThreads - 1) / kThreads;
+  xty_split_sum_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), count,
+      splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* repro_cuda_error_string(int code) {

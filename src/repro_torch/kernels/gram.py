@@ -1,7 +1,9 @@
 """Checked launchers of the CUDA cross-Gram kernel (``csrc/gram.cu``).
 
 Port of ``repro/kernels/gram.py``: ``xty_folds`` (per-fold ``X_fᵀY_f`` in
-one row pass), ``xty`` (``XᵀY``, the one-fold case of the same kernel) and
+one row pass), ``xty`` (``XᵀY``: the one-fold case of the same kernel, or,
+for an output too small to fill the card, that kernel over ``row_splits``
+row ranges plus an in-order sum of the partials) and
 ``xty_folds_masked`` (per-slot ``(X·w_s)ᵀZ``, the streamed chunk update).
 Each wrapper takes CUDA tensors only, checks them, allocates the f32 output,
 launches on the current stream, raises on a launch error and counts the
@@ -21,6 +23,8 @@ from repro_torch.kernels import _build
 _TILE = 128          # output tile edge of the kernel (both axes)
 _MAX_GRID_YZ = 65535
 _MAX_FOLDS = 64      # the kernel takes the fold bounds by value (kMaxFolds)
+_BLOCKS_PER_SM = 2   # __launch_bounds__(256, 2) of the fold kernel
+_MIN_SPLIT_ROWS = 256
 
 # Launches per kernel since the last ``reset_launches()``.
 LAUNCHES: dict[str, int] = {"xty": 0, "xty_folds": 0,
@@ -73,8 +77,26 @@ def _check_bounds(bounds: Sequence[tuple[int, int]], n: int
     return b
 
 
-def _launch(name: str, x: torch.Tensor, y: torch.Tensor,
-            bounds: list[tuple[int, int]]) -> torch.Tensor:
+def row_splits(n: int, p: int, q: int, sms: int = 132
+               ) -> list[tuple[int, int]]:
+    """The row ranges ``xty`` cuts an (n, p) × (n, q) product into.
+
+    One range ``[(0, n)]`` when the output's 128 × 128 tiles already number
+    at least two per SM (the kernel's occupancy); otherwise S contiguous,
+    near-equal ranges covering ``[0, n)`` with tiles · S ≥ 2 · sms, each at
+    least 256 rows and S ≤ 64 (the kernel's fold limit).
+    """
+    tiles = -(-p // _TILE) * -(-q // _TILE)
+    want = _BLOCKS_PER_SM * sms
+    s = 1 if tiles >= want else -(-want // max(tiles, 1))
+    s = max(1, min(s, n // _MIN_SPLIT_ROWS, _MAX_FOLDS))
+    return [(i * n // s, (i + 1) * n // s) for i in range(s)]
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor,
+            bounds: list[tuple[int, int]], name: str) -> torch.Tensor:
+    """One launch of the fold kernel → (k, p, q) f32; ``name`` labels an
+    error only (the callers count their launches)."""
     p, q, k = x.shape[1], y.shape[1], len(bounds)
     out = torch.empty((k, p, q), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -91,7 +113,6 @@ def _launch(name: str, x: torch.Tensor, y: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
     _build.check_rc(lib, rc, name, f"x {tuple(x.shape)}, y "
                     f"{tuple(y.shape)}, k={k}, {x.dtype}")
-    LAUNCHES[name] += 1
     return out
 
 
@@ -110,13 +131,39 @@ def xty_folds(x: torch.Tensor, y: torch.Tensor,
     contiguous, float32 or bfloat16 alike → (k, p, q) float32.
     """
     _check_operands(x, y)
-    return _launch("xty_folds", x, y, _check_bounds(bounds, x.shape[0]))
+    out = _launch(x, y, _check_bounds(bounds, x.shape[0]), "xty_folds")
+    LAUNCHES["xty_folds"] += 1
+    return out
 
 
 def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``XᵀY`` in f32: the one-fold case.  (n, p), (n, q) → (p, q)."""
+    """``XᵀY`` in f32.  (n, p), (n, q) → (p, q).
+
+    The one-fold launch where the output fills the card; else the fold
+    kernel over ``row_splits`` and a second kernel that adds the partials
+    in split order (no atomics: repeated calls are bitwise equal).  One
+    call counts one launch.
+    """
     _check_operands(x, y)
-    return _launch("xty", x, y, [(0, x.shape[0])])[0]
+    n, p = x.shape
+    q = y.shape[1]
+    splits = row_splits(n, p, q, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    part = _launch(x, y, splits, "xty")
+    if len(splits) > 1 and part.numel():
+        out = torch.empty((p, q), dtype=torch.float32, device=x.device)
+        lib = _build.load()
+        with torch.cuda.device(x.device):
+            rc = lib.repro_xty_split_sum(
+                part.data_ptr(), out.data_ptr(), p * q, len(splits),
+                torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check_rc(lib, rc, "xty (sum of row splits)",
+                        f"x {tuple(x.shape)}, y {tuple(y.shape)}, "
+                        f"{len(splits)} splits")
+        part = out[None]
+    LAUNCHES["xty"] += 1
+    return part[0]
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:

@@ -71,6 +71,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def bf16_split3(p: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 flash kernel's split of f32 probabilities into three bf16
+    terms, each cut to its top 16 bits (bf16 rounded toward zero):
+    ``p₁`` of ``p``, ``p₂`` of ``p − p₁``, ``p₃`` of ``p − p₁ − p₂``, the
+    residuals taken in f32, where they are exact.  ``p₁ + p₂ + p₃ == p``
+    exactly, since 3 × 8 significand bits cover f32's 24, unless ``p₃``
+    would need bits below bf16's smallest subnormal, 2⁻¹³³ (p < 2⁻¹¹⁰);
+    so each ``pᵢ·v`` for a bf16 ``v`` is exact in f32, and three bf16
+    products give the f32 ``p·v``."""
+    def top16(x: torch.Tensor) -> torch.Tensor:
+        return (x.view(torch.int32) & -65536).view(torch.float32)
+
+    p = p.float().contiguous()
+    p1 = top16(p)
+    r1 = p - p1
+    p2 = top16(r1)
+    p3 = top16(r1 - p2)
+    # Each term's low 16 bits are zero, so these casts are exact.
+    return (p1.to(torch.bfloat16), p2.to(torch.bfloat16),
+            p3.to(torch.bfloat16))
+
+
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_kv: int,
               *, causal: bool = True, window: int | None = None,
               softcap: float | None = None) -> torch.Tensor:

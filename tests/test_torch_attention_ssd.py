@@ -10,6 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ref as jref
@@ -109,6 +111,76 @@ def test_plain_mha_flash_gqa_matches_pallas_wrapper(h, n_kv, causal):
     np.testing.assert_allclose(_np(got), _np(want), **F32)
 
 
+# Finite f32 values in [0, 1], and ones with exponents down to 2⁻¹¹⁰: the
+# range of the flash kernel's probabilities exp(s − m).
+_PROBS = st.lists(st.one_of(st.just(0.0), st.just(1.0),
+                            st.floats(2.0 ** -110, 1.0, width=32),
+                            st.floats(0.0, 1.0, width=32)),
+                  min_size=1, max_size=64)
+
+
+@settings(max_examples=200, deadline=None)
+@given(_PROBS, st.integers(0, 2**32 - 1))
+def test_bf16_split3_is_exact(ps, seed):
+    """p₁ + p₂ + p₃ == p bitwise for p = 0 and p ≥ 2⁻¹¹⁰, and then
+    (p₁ + p₂ + p₃)·v == p·v for bf16 v: each pᵢ·v is exact in f32, so
+    three bf16 products give the f32 one.  Below 2⁻¹¹⁰ only p₃ can lose
+    bits, less than bf16's smallest subnormal, 2⁻¹³³."""
+    p = torch.tensor(ps, dtype=torch.float32)
+    p1, p2, p3 = tref.bf16_split3(p)
+    assert p1.dtype == p2.dtype == p3.dtype == torch.bfloat16
+    total = (p1.float() + p2.float()) + p3.float()
+    exact = (p == 0) | (p >= 2.0 ** -110)
+    assert torch.equal(total[exact], p[exact])
+    assert bool(((total.double() - p.double()).abs() < 2.0 ** -133).all())
+    v = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        len(ps)).astype(np.float32)).to(torch.bfloat16).float()
+    for term in (p1, p2, p3):
+        assert torch.equal((term.float() * v).double(),
+                           term.double() * v.double())
+    prod = sum((t.float() * v).double() for t in (p1, p2, p3))
+    assert torch.equal(prod[exact], (p.double() * v.double())[exact])
+
+
+def _split_pv_attention(q, k, v, *, causal, window, softcap):
+    """The bf16 kernel's arithmetic, plainly: f32 scores from bf16 q·k,
+    softcap, NEG mask, p = exp(s − max), P·V as Σᵢ bf16_split3(p)ᵢ·v in
+    f32, then / max(l, 1e-30).  f32 out."""
+    q, k, v = q.float(), k.float(), v.float()
+    S, T = q.shape[1], k.shape[1]
+    dist = torch.arange(S)[:, None] - torch.arange(T)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        mask &= dist >= 0
+    if window is not None:
+        mask &= dist < window
+    s = torch.einsum("hsk,htk->hst", q, k)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = sum(torch.einsum("hst,htk->hsk", t.float(), v)
+              for t in tref.bf16_split3(p))
+    return out / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+
+
+@pytest.mark.parametrize("s,t,kd,causal,window,softcap", FLASH_CASES)
+def test_split_pv_emulation_matches_reference(s, t, kd, causal, window,
+                                              softcap):
+    """On bf16 inputs the split P·V gives the reference's f32 attention
+    within the f32 tolerance, before any card runs it."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(3, s, t, kd, seed=kd),
+                                       "bfloat16")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _split_pv_attention(tq, tk, tv, **kw)
+    want = jref.flash_attention(*(a.astype(jnp.float32)
+                                  for a in (jq, jk, jv)), **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    np.testing.assert_allclose(
+        _np(got), _np(tref.flash_attention(tq.float(), tk.float(),
+                                           tv.float(), **kw)), **F32)
+
+
 def _ssd_inputs(n, q, h, p, seed=0):
     rng = np.random.default_rng(seed)
     cb = (rng.standard_normal((n, q, q)) / np.sqrt(q)).astype(np.float32)
@@ -199,16 +271,23 @@ def _check_operand_errors_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kd", [16, 64, 80, 128])
+@pytest.mark.parametrize("kd", [16, 40, 64, 80, 100, 128])
 def test_cuda_flash_matches_plain_version(dtype, kd):
+    """K not a multiple of 16 (40, 100; 100 is not even a multiple of 8,
+    so the bf16 kernel copies element by element), S and T off the tiles,
+    window and softcap, then GQA on strided views through mha_flash."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
+    tol = F32 if dtype == "float32" else BF16
     g = torch.Generator("cuda").manual_seed(kd)
     tattn.reset_launches()
     for s, t, causal, window, softcap in [(200, 200, True, None, None),
                                           (96, 96, True, 40, 50.0),
                                           (128, 128, False, None, None),
-                                          (64, 100, False, 30, None)]:
+                                          (64, 100, False, 30, None),
+                                          (130, 130, True, None, 30.0),
+                                          (257, 193, False, None, 20.0),
+                                          (300, 300, True, 70, None)]:
         q = (torch.randn(3, s, kd, device="cuda", generator=g)
              * kd ** -0.5).to(dt)
         k = torch.randn(3, t, kd, device="cuda", generator=g).to(dt)
@@ -217,8 +296,19 @@ def test_cuda_flash_matches_plain_version(dtype, kd):
         got = tattn.flash_attention(q, k, v, **kw)
         torch.testing.assert_close(got.float(),
                                    tref.flash_attention(q, k, v, **kw).float(),
-                                   **(F32 if dtype == "float32" else BF16))
-    assert tattn.LAUNCHES == {"flash_attention": 4}
+                                   **tol)
+    for b, s, h, n_kv, window, softcap in [(2, 150, 8, 2, None, None),
+                                           (1, 200, 6, 3, 50, 30.0)]:
+        # q, k, v: strided views of one (B, S, 3, H, K) projection.
+        qkv = torch.randn(b, s, 3, h, kd, device="cuda", generator=g)
+        q, k, v = (qkv * torch.tensor([kd ** -0.5, 1.0, 1.0], device="cuda")
+                   [:, None, None]).to(dt).unbind(2)
+        k, v = k[:, :, :n_kv], v[:, :, :n_kv]
+        kw = dict(window=window, softcap=softcap)
+        got = tattn.mha_flash(q, k, v, n_kv, **kw)
+        torch.testing.assert_close(
+            got.float(), tref.mha_flash(q, k, v, n_kv, **kw).float(), **tol)
+    assert tattn.LAUNCHES == {"flash_attention": 9}
     _check_operand_errors_on_card()
 
 

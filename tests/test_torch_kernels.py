@@ -168,6 +168,60 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
         _build._sources.cache_clear()
 
 
+@pytest.mark.parametrize("n,p,q,split", [
+    (16_384, 1_000, 1_000, True),     # the dual fit's XXᵀ: 64 tiles
+    (20_000, 300, 300, True),         # 9 tiles
+    (1_037, 255, 130, True),          # 4 tiles, only 1,037 rows
+    (69_202, 16_384, 16_828, False),  # the primal Gram: a full grid
+    (1_000, 16_384, 2_000, False),    # the dual Xᵀα: 2,048 tiles
+    (200, 10, 10, False),             # too few rows to split
+    (0, 5, 5, False),
+])
+def test_xty_row_splits_rule(n, p, q, split):
+    tiles = -(-p // 128) * -(-q // 128)
+    got = tgram.row_splits(n, p, q)
+    assert (len(got) > 1) == split
+    assert got[0][0] == 0 and got[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert len(got) <= 64
+    if split:
+        assert all(hi - lo >= 256 for lo, hi in got)
+        assert max(hi - lo for lo, hi in got) \
+            - min(hi - lo for lo, hi in got) <= 1
+        assert tiles * len(got) >= 2 * 132 or len(got) == n // 256
+    else:
+        assert got == [(0, n)]
+    # Fewer SMs → fewer splits; a card with 4× the SMs never fewer.
+    assert len(tgram.row_splits(n, p, q, sms=33)) <= len(got) \
+        <= len(tgram.row_splits(n, p, q, sms=528))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_xty_row_split_matches_plain_version(dtype):
+    """A narrow output over many rows takes the split path: equal to the
+    plain version, and repeated launches are bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(3)
+    tgram.reset_launches()
+    for n, p, q in [(20_000, 300, 300), (16_384, 1_000, 1_000),
+                    (5_003, 129, 7)]:
+        x = torch.randn(n, p, device="cuda", generator=g).to(dt)
+        y = x if p == q else torch.randn(n, q, device="cuda",
+                                         generator=g).to(dt)
+        assert len(tgram.row_splits(n, p, q, torch.cuda.get_device_properties(
+            0).multi_processor_count)) > 1
+        got = tgram.xty(x, y)
+        want = tref.xty(x, y)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 *
+                                   want.abs().max().item())
+        assert torch.equal(got, tgram.xty(x, y))
+    assert tgram.LAUNCHES == {"xty": 6, "xty_folds": 0,
+                              "xty_folds_masked": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernels_match_plain_versions(dtype):

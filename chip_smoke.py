@@ -13,10 +13,16 @@ nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
    register/spill report.
 2. Each kernel against its plain PyTorch version, f32 and bf16, at small
    ragged shapes and at the main path's full shapes, with times of the
-   kernel, the plain version, the nearest library call, and the card's
-   bound for the same work; ``xty``'s two dual parts each on its own, with
-   ``XXᵀ`` (row-split) beside the unsplit one-fold launch of the same
-   kernel and its repeated launches held bitwise equal.
+   kernel and the nearest library call (in turns: library, kernel,
+   kernel, library), the plain version, and the card's bound for the same
+   work; ``xty``'s two dual parts each on its own, with ``XXᵀ``
+   (row-split) beside the unsplit one-fold launch of the same kernel and
+   its repeated launches held bitwise equal.  ``xty_folds_masked`` runs on
+   the split-bf16 tensor-core engine: its bound is the tensor-core time of
+   the bf16 term products it computes, the f32-rate bound beside it; its
+   small cases also check repeated launches bitwise equal and the
+   non-finite rule (NaN where the plain version is NaN, non-finite where
+   it is ±Inf).
 3. The primal slice at the paper's full size (``parcels``: n=69,202
    training rows, p=16,384, t=444) through ``pipeline.run``: 76,891 rows
    are generated so that the 90/10 split leaves the fit the paper's
@@ -58,9 +64,11 @@ nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
    plain-path fit (equal λ, W and CV curve within rtol 1e-4/atol 2e-4).
    Then one more forward runs under ``torch.profiler`` and the device
    time is printed by kernel.
-10. The seed path's kernels (``solve_lambda_grid``, ``pearson_r``) against
-    their plain versions, f32 and bf16: at small ragged shapes (Q row- and
-    column-major; a constant and a perfectly anti-correlated column), then
+10. The seed path's kernels (``solve_lambda_grid``, on the split engine as
+    in phase 2, and ``pearson_r``) against their plain versions, f32 and
+    bf16: at small ragged shapes (Q row- and column-major, repeated
+    launches, an Inf and a NaN in A; a constant and a perfectly
+    anti-correlated column), then
     at full shapes with times of kernel, plain version and library call
     beside the bound: the solve at the parcels primal split (r=11,
     p=16,384, t=444, Q from an ``eigh``), Pearson at the whole-brain
@@ -255,6 +263,27 @@ def _compare(name, got, want, dtype_name) -> tuple[float, float]:
     return err, scale
 
 
+def _nonfinite_rule(name, got, want) -> float:
+    """The split engine's rule for non-finite inputs: NaN where the plain
+    version is NaN, non-finite where it is ±Inf, finite entries within
+    REL_TOL·max|plain| → max |kernel − plain| over the finite entries."""
+    import torch
+    torch.cuda.synchronize()
+    nan, inf = torch.isnan(want), torch.isinf(want)
+    check(bool(nan.any()) or bool(inf.any()), f"{name}: no non-finite "
+          f"entries in the plain version's output")
+    check(bool(torch.isnan(got[nan]).all()), f"{name}: a NaN of the plain "
+          f"version is not NaN in the kernel's output")
+    check(not bool(torch.isfinite(got[inf]).any()), f"{name}: an Inf of the "
+          f"plain version is finite in the kernel's output")
+    fin = ~(nan | inf)
+    err = (got[fin] - want[fin]).abs().max().item()
+    scale = want[fin].abs().max().item()
+    check(err <= REL_TOL * scale, f"{name}: finite entries max|kernel-plain|"
+          f"={err:.3e} > {REL_TOL:g}·{scale:.3e}")
+    return err
+
+
 def phase_kernels_small() -> None:
     import torch
     from repro_torch.core.foldstats import fold_bounds
@@ -286,7 +315,9 @@ def phase_kernels_small() -> None:
                               ref.xty(x, y), dn)
             print(f"[kernels] xty n={n} p={p} q={q} {dn}: max abs err "
                   f"{err:.3e} ok")
-    masked_cases = [(203, 129, 70, 1), (1037, 255, 391, 2), (9, 1, 300, 3)]
+    # m, p, q multiples of no tile of the split engine (128 × 192 × 32).
+    masked_cases = [(203, 129, 70, 1), (1037, 255, 391, 2), (9, 1, 300, 3),
+                    (333, 131, 197, 2)]
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
         for m, p, q, s in masked_cases:
@@ -303,11 +334,37 @@ def phase_kernels_small() -> None:
                              w * torch.rand(m, s, device="cuda",
                                             generator=g))):
                 wt = wt.to(dt)
+                got = gram.xty_folds_masked(x, z, wt)
                 err, _ = _compare(f"xty_folds_masked{(m, p, q, s)} {name}",
-                                  gram.xty_folds_masked(x, z, wt),
-                                  ref.xty_folds_masked(x, z, wt), dn)
+                                  got, ref.xty_folds_masked(x, z, wt), dn)
+                check(torch.equal(got, gram.xty_folds_masked(x, z, wt)),
+                      f"xty_folds_masked{(m, p, q, s)}: repeated launches "
+                      f"differ")
+                check(s == 1 or not got[-1].any(),
+                      "xty_folds_masked: the all-zero slot is not zero")
+                model = (got - ref.xty_folds_masked_split(x, z, wt)
+                         ).abs().max().item()
                 print(f"[kernels] xty_folds_masked m={m} p={p} q={q} s={s} "
-                      f"{name} {dn}: max abs err {err:.3e} ok")
+                      f"{name} {dn}: max abs err {err:.3e} (against the "
+                      f"split model {model:.3e}), repeated launch bitwise "
+                      f"equal ok")
+        # A NaN in x under a zero weight, an Inf in x under its weight, an
+        # Inf in z.
+        x = torch.randn(203, 129, device="cuda", generator=g)
+        z = torch.randn(203, 70, device="cuda", generator=g)
+        w = torch.zeros(203, 2, device="cuda")
+        w[:100, 0] = 1.0
+        w[100:, 1] = 1.0
+        x[5, 3], w[5] = float("nan"), 0.0
+        x[120, 9] = float("inf")
+        z[150, 7] = float("inf")
+        x, z, w = x.to(dt), z.to(dt), w.to(dt)
+        err = _nonfinite_rule("xty_folds_masked non-finite",
+                              gram.xty_folds_masked(x, z, w),
+                              ref.xty_folds_masked(x, z, w))
+        print(f"[kernels] xty_folds_masked non-finite inputs {dn}: NaN where "
+              f"plain NaN, non-finite where plain ±Inf, finite max abs err "
+              f"{err:.3e} ok")
     # The wrappers refuse what the kernel does not take.
     x = torch.randn(8, 4, device="cuda")
     for bad in (x.T, x.double(), x.cpu()):
@@ -333,11 +390,15 @@ def _bound_ms(flops: float, nbytes: float, card: str) -> tuple[float, str]:
 
 
 def _measure(name, kernel, plain, library, args32, flops, nbytes, card,
-             reps, cast_args=None):
+             reps, cast_args=None, products=None):
     """Compare in f32 and bf16, time in f32 → the record's numbers.
     ``args32`` are the f32 operands; the same tensor twice stays shared.
     ``cast_args``: the indices of the operands the bf16 comparison rounds
-    (default all; the others stay f32)."""
+    (default all; the others stay f32).  ``products``: for a kernel on the
+    split-bf16 engine, the bf16 term products it computes per product of
+    the function; its bound is then the tensor-core time of those, with
+    the f32-rate bound kept beside it.  Kernel and library call are timed
+    in turns (library, kernel, kernel, library)."""
     import torch
     errs, scale = {}, {}
     idx = range(len(args32)) if cast_args is None else cast_args
@@ -350,25 +411,36 @@ def _measure(name, kernel, plain, library, args32, flops, nbytes, card,
         errs[dn], scale[dn] = _compare(name, got, want, dn)
         del got, want, args, cast
         free()
-    ms = time_ms(lambda: kernel(*args32), reps)
+    turns = [time_ms(lambda: fn(*args32), reps)
+             for fn in (library, kernel, kernel, library)]
+    ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     plain_ms = time_ms(lambda: plain(*args32), reps)
-    lib_ms = time_ms(lambda: library(*args32), reps)
-    bound, by = _bound_ms(flops, nbytes, card)
+    bound_f32, by = _bound_ms(flops, nbytes, card)
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_f32, "bound_by": by,
+           "max_abs_err": errs["float32"], "tflops": flops / ms / 1e9}
+    how = f"bound {bound_f32:.3f} ms ({by})"
+    if products is not None:
+        t_tc = products * flops / bf16_peak(card) * 1e3
+        t_bytes = nbytes / peaks(card)[1] * 1e3
+        rec.update(bound_ms=max(t_tc, t_bytes), bound_f32_ms=bound_f32,
+                   bound_by="operations" if t_tc >= t_bytes else "bytes")
+        how = (f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: "
+               f"{products} bf16 term products on the tensor cores; "
+               f"bytes {t_bytes:.3f} ms), f32-rate bound {bound_f32:.3f} ms")
     print(f"[kernels] {name}: max abs err f32 {errs['float32']:.3e}, bf16 "
           f"{errs['bfloat16']:.3e} (tol {REL_TOL:g}·max|plain|, max|plain| "
-          f"{scale['float32']:.4e}); kernel "
-          f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f}"
-          f" ms, library {lib_ms:.3f} ms, bound {bound:.3f} ms ({by}) "
-          f"[{card}]")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound, "bound_by": by,
-            "max_abs_err": errs["float32"]}
+          f"{scale['float32']:.4e}); kernel {ms:.3f} ms ({turns[1]:.3f}/"
+          f"{turns[2]:.3f}; {rec['tflops']:.1f} TFLOP/s of the function's "
+          f"{flops:.4e} FLOPs), plain {plain_ms:.3f} ms, library "
+          f"{lib_ms:.3f} ms ({turns[0]:.3f}/{turns[3]:.3f}), {how} [{card}]")
+    return rec
 
 
 def phase_kernels_full(card: str, reps: int) -> dict:
     import torch
     from repro_torch.core.foldstats import fold_bounds
-    from repro_torch.kernels import gram, ref
+    from repro_torch.kernels import gram, ref, split_engine
 
     from repro_torch.core import complexity
     from repro_torch.encoding import EncoderConfig
@@ -454,10 +526,20 @@ def phase_kernels_full(card: str, reps: int) -> dict:
     def lib_masked(x, z, wt):
         return [torch.matmul((x * wt[:, i:i + 1]).T, z) for i in range(s)]
 
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gram.xty_folds_masked(X, Z, W)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
     rec["xty_folds_masked"] = _measure(
         f"xty_folds_masked m={m} p={p} q={q} s={s}", gram.xty_folds_masked,
         ref.xty_folds_masked, lib_masked, (X, Z, W), 2.0 * s * m * p * q,
-        4.0 * (m * p + m * q + m * s + s * p * q), card, reps)
+        4.0 * (m * p + m * q + m * s + s * p * q), card, reps,
+        products=len(split_engine.pairs(*split_engine.masked_planes(
+            X.dtype))))
+    print(f"[kernels] xty_folds_masked: one launch allocates "
+          f"{extra / 2**30:.2f} GiB (output and the engine's scratch) "
+          f"[{card}]")
     selected = 2.0 * float(W.sum()) * p * q
     print(f"[kernels] xty_folds_masked: the mask selects "
           f"{int(W.sum())} of {s}·{m} slot-rows, {selected:.4e} of the "
@@ -1222,7 +1304,7 @@ def phase_seed_kernels_small() -> None:
         dn = str(dt).removeprefix("torch.")
         # tests/test_kernels.py::SHAPES_SOLVE (p, t, r), and edge sizes.
         for p, t, r in [(32, 24, 3), (130, 70, 11), (256, 128, 4), (1, 1, 1),
-                        (257, 3, 2)]:
+                        (257, 3, 2), (161, 445, 3)]:
             Q, _ = torch.linalg.qr(randn(p, p))
             ev = randn(p).abs() * 10 + 0.1
             a = randn(p, t).to(dt)
@@ -1233,14 +1315,30 @@ def phase_seed_kernels_small() -> None:
                 q = q.to(dt)
                 check(p == 1 or q.is_contiguous() == (layout == "row"),
                       f"{layout}-major Q has strides {q.stride()}")
+                got = ridge_solve.solve_lambda_grid(q, ev, a, lams)
                 err, _ = _compare(
-                    f"solve_lambda_grid{(p, t, r)} {layout}-major Q",
-                    ridge_solve.solve_lambda_grid(q, ev, a, lams),
+                    f"solve_lambda_grid{(p, t, r)} {layout}-major Q", got,
                     ref.solve_lambda_grid(q, ev, a, lams), dn)
+                check(torch.equal(got, ridge_solve.solve_lambda_grid(
+                    q, ev, a, lams)), f"solve_lambda_grid{(p, t, r)}: "
+                    f"repeated launches differ")
                 errs.append(err)
             print(f"[seed-kernels] solve_lambda_grid p={p} t={t} r={r} {dn}: "
                   f"max abs err row-major Q {errs[0]:.3e}, column-major "
-                  f"{errs[1]:.3e} ok")
+                  f"{errs[1]:.3e}, repeated launches bitwise equal ok")
+        # An Inf and a NaN in A.
+        Q, _ = torch.linalg.qr(randn(130, 130))
+        ev = randn(130).abs() * 10 + 0.1
+        a = randn(130, 70)
+        a[3, 5], a[7, 1] = float("inf"), float("nan")
+        q, a = Q.T.contiguous().T.to(dt), a.to(dt)
+        lams = torch.logspace(-1, 3, 4, device="cuda")
+        err = _nonfinite_rule("solve_lambda_grid non-finite",
+                              ridge_solve.solve_lambda_grid(q, ev, a, lams),
+                              ref.solve_lambda_grid(q, ev, a, lams))
+        print(f"[seed-kernels] solve_lambda_grid non-finite A {dn}: NaN where "
+              f"plain NaN, non-finite where plain ±Inf, finite max abs err "
+              f"{err:.3e} ok")
         for n, t in [(50, 17), (1000, 128), (333, 257), (1, 5), (7, 3)]:
             yt, yp = _pearson_pair(n, t, g)
             yt, yp = yt.to(dt), yp.to(dt)
@@ -1276,6 +1374,7 @@ def phase_seed_kernels_full(card: str, heldout, reps: int
     import torch
     from repro_torch.core import complexity, ridge, scoring
     from repro_torch.kernels import ops, pearsonr, ref, ridge_solve
+    from repro_torch.kernels import split_engine
 
     g = torch.Generator("cuda").manual_seed(15)
     rec = {}
@@ -1302,10 +1401,20 @@ def phase_seed_kernels_full(card: str, heldout, reps: int
 
     flops = 2.0 * r * p * p * t
     nbytes = 4.0 * (p * p + p * t + r * p * t + p + r)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ridge_solve.solve_lambda_grid(Q, ev, a, lams)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
     rec["solve_lambda_grid"] = _measure(
         f"solve_lambda_grid r={r} p={p} t={t} column-major Q",
         ridge_solve.solve_lambda_grid, ref.solve_lambda_grid, lib_solve,
-        (Q, ev, a, lams), flops, nbytes, card, reps, cast_args=(0, 2))
+        (Q, ev, a, lams), flops, nbytes, card, reps, cast_args=(0, 2),
+        products=len(split_engine.pairs(*split_engine.solve_planes(
+            Q.dtype))))
+    print(f"[seed-kernels] solve_lambda_grid: one launch allocates "
+          f"{extra / 2**30:.2f} GiB (output, reciprocals and the engine's "
+          f"scratch) [{card}]")
     Qr = Q.contiguous()
     err_r, _ = _compare("solve_lambda_grid row-major Q",
                         ridge_solve.solve_lambda_grid(Qr, ev, a, lams),
@@ -1589,19 +1698,20 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("gram.cu", "src/repro/kernels/gram.py:158"),
              "xty": ("gram.cu", "src/repro/kernels/gram.py:72"),
-             "xty_folds_masked": ("gram.cu",
+             "xty_folds_masked": ("split_engine.cu",
                                   "src/repro/kernels/gram.py:233"),
              "flash_attention": ("flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:124"),
              "ssd_intra": ("ssd.cu", "src/repro/kernels/ssd.py:69"),
              "pearson_r": ("pearsonr.cu", "src/repro/kernels/pearsonr.py:71"),
-             "solve_lambda_grid": ("ridge_solve.cu",
+             "solve_lambda_grid": ("split_engine.cu",
                                    "src/repro/kernels/ridge_solve.py:72")}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": replaces, "launches": launches[name],
                 **{k: rec[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
-                                             "library_ms")}}
+                                             "library_ms", "bound_f32_ms")
+                   if k in rec[name]}}
                for name, (src, replaces) in where.items()]
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi())

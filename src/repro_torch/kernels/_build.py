@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
 
-The sources under ``kernels/csrc/`` expose a plain C interface, so they are
-compiled by ``nvcc`` alone — no PyTorch headers — for Hopper (``sm_90a``),
-one ``nvcc -c`` per source, all started together, then linked into one
-shared library and loaded with ``ctypes``.  The build happens at first
-use, into ``build/kernels/`` at the repository root; the library's file
-name carries a hash of the sources and flags, so a changed source is
+The sources under ``kernels/csrc/`` (``*.cu``, and the ``*.cuh`` headers
+they include) expose a plain C interface, so they are compiled by ``nvcc``
+alone — no PyTorch headers — for Hopper (``sm_90a``), one ``nvcc -c``
+per source, all started together, then linked into one shared library
+and loaded with ``ctypes``.  The build happens at first use, into
+``build/kernels/`` at the repository root; the library's file name
+carries a hash of the sources, headers and flags, so a changed file is
 rebuilt and an unchanged one is loaded as it is.  A failed build or load
 raises with nvcc's output: there is no fallback.
 """
@@ -35,6 +36,11 @@ def _sources() -> tuple[Path, ...]:
     return tuple(sorted(CSRC.glob("*.cu")))
 
 
+@functools.cache
+def _headers() -> tuple[Path, ...]:
+    return tuple(sorted(CSRC.glob("*.cuh")))
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -46,9 +52,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_kernels_{h.hexdigest()[:16]}.so"
@@ -105,8 +112,9 @@ def load() -> ctypes.CDLL:
         fn.restype = i32
     for name in ("repro_xty_folds_masked_f32", "repro_xty_folds_masked_bf16"):
         fn = getattr(lib, name)
-        # x, z, w, out, m, p, q, s, device, stream
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32, ptr]
+        # x, z, w, scratch_a, scratch_b, out, m, p, q, s, device, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i32,
+                       ptr]
         fn.restype = i32
     for name in ("repro_flash_attention_f32", "repro_flash_attention_bf16"):
         fn = getattr(lib, name)
@@ -123,10 +131,10 @@ def load() -> ctypes.CDLL:
     for name in ("repro_solve_lambda_grid_f32",
                  "repro_solve_lambda_grid_bf16"):
         fn = getattr(lib, name)
-        # q, q strides (2), evals, a, lambdas, scales, out, p, t, r, device,
-        # stream
-        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, ptr, i64, i64, i32,
-                       i32, ptr]
+        # q, q strides (2), evals, a, lambdas, scales, scratch_a, scratch_b,
+        # out, p, t, r, device, stream
+        fn.argtypes = [ptr, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                       i64, i32, i32, ptr]
         fn.restype = i32
     for name in ("repro_pearson_r_f32", "repro_pearson_r_bf16"):
         fn = getattr(lib, name)

@@ -9,9 +9,9 @@
 //     contiguous row ranges whose S partial products a second small kernel
 //     adds in order (kernels/gram.py::row_splits picks S);
 //   * xty_folds_masked (every chunk update of the streamed fit,
-//     foldstats._FixedShapeUpdate): per-slot row weights w (m, s), in
-//     practice a one-hot of each row's fold, applied to x at the load, so
-//     the masked (s, m, p) operand the XLA formula builds never exists.
+//     foldstats._FixedShapeUpdate; TPU kernel gram.py xty_folds_masked) runs
+//     on the split-bf16 tensor-core engine (split_engine.cu), not on the row
+//     loop below: see "The masked kernel" at the end of this note.
 //
 // What bounds it on this card: f32 arithmetic.  The reference accumulates in
 // f32 (preferred_element_type), so the port uses no TF32 tensor-core `mma`;
@@ -50,20 +50,29 @@
 //     the product of two bf16 values is exact in f32.
 //   * Every offset is int64: at the main path's shapes n·(p+t) is ~1.2e9
 //     elements and the (k, p, q) output ~1.4e9.
-//   * The masked kernel shares the row loop: block (j, i, slot) sweeps all
-//     m rows of the chunk and scales each staged x row by w[row, slot] in
-//     f32 (the mask is a device operand, read once per row and stage).  At
-//     the streamed fit's shapes (m = 8,192, p = 16,384, q = 16,828, s = 2)
-//     that is 2·s·m·p·q = 9.0e12 FLOPs against ~0.6 GB read: bound by
-//     operations.  All-zero stages are not skipped: the reference keeps
-//     0·Inf and 0·NaN rows as NaN, and so does this kernel.
-// Not done yet (later work): the shared row loop (accumulate_rows) reaches
-// ~43 TFLOP/s of the 67; its redesign (deeper staging, 3xTF32-style exact
-// splits on the tensor cores) and skipping a chunk's all-zero slot stages
-// in the masked kernel.  Xᵀα (2,048 tiles, only 1,000 rows deep) is not
-// split and rests on that engine.
+// The masked kernel, out[s] = (x · diag(w[:, s]))ᵀ z: a split pass writes
+// the bf16 terms of x·w_s (the weight applied in f32 first, as the plain
+// version's x.float() * w; all slots stacked as the rows of one operand)
+// and of z into scratch the wrapper allocates, then one tensor-core product
+// over the kept term pairs writes the (s·p, q) = (s, p, q) output.  f32
+// operands split into 3 + 3 terms, 6 products kept; bf16 x·w (exact in f32)
+// into 2 and bf16 z into 1, 2 products.  Bound: tensor-core operations,
+// 6 × 2·s·m·p·q = 5.4e13 at the streamed fit's chunk (m = 8,192,
+// p = 16,384, q = 16,828, s = 2): 54.7 ms at 989 TFLOP/s, against 134.8 ms
+// at the f32 rate of the row loop it replaces.  Scratch: 3 × 32,768 ×
+// 8,192 × 2 B = 1.61 GB for x·w and 0.83 GB for z.  Non-finite inputs: NaN
+// where the plain version gives NaN, NaN where it gives ±Inf; a 0 weight
+// on a NaN or Inf row gives NaN, as the reference keeps 0·Inf and 0·NaN
+// rows as NaN; an all-zero slot of finite rows gives an exact zero tile.
+// The engine's note (split_engine.cu) has the split rule and what is not
+// done yet; skipping a slot's all-zero stages is not done.
+// Not done yet (later work): the row loop (accumulate_rows) reaches ~43
+// TFLOP/s of the 67; xty_folds and xty are to move onto the split engine.
+// Xᵀα (2,048 tiles, only 1,000 rows deep) is not split.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "split_engine.cuh"
 
 namespace {
 
@@ -112,26 +121,12 @@ __device__ __forceinline__ void store_stage(float (*dst)[kBlockI], int tid,
   for (int e = 0; e < 4; ++e) dst[r][lane + 32 * e] = reg[e];
 }
 
-// Scales each thread's staged x values by its row's slot weight w[row, slot]
-// (f32), the mask of the masked kernel.  Rows past row_end were loaded as 0.
-template <typename T>
-__device__ __forceinline__ void scale_stage(const T* __restrict__ w,
-                                            long long ws, long long slot,
-                                            long long row0, long long row_end,
-                                            int tid, float (&reg)[4]) {
-  const long long row = row0 + (tid >> 5);
-  const float wv = row < row_end ? to_f32(w[row * ws + slot]) : 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) reg[e] *= wv;
-}
-
 // Accumulates rows [lo, hi) of the (128 × 128) output tile at (i0, j0) into
-// acc: acc += (x[lo:hi, i0:i0+128] · w)ᵀ · y[lo:hi, j0:j0+128].  With kMasked
-// each x row is first scaled by w[row, slot] (w has ws columns).
-template <typename T, bool kMasked>
+// acc: acc += x[lo:hi, i0:i0+128]ᵀ · y[lo:hi, j0:j0+128].
+template <typename T>
 __device__ __forceinline__ void accumulate_rows(
-    const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ w,
-    long long ws, long long slot, long long lo, long long hi, long long i0,
+    const T* __restrict__ x, const T* __restrict__ y, long long lo,
+    long long hi, long long i0,
     long long j0, long long p, long long q, float (*xs)[kStageRows][kBlockI],
     float (*ys)[kStageRows][kBlockJ], float (&acc)[8][8]) {
   const int tid = threadIdx.x;
@@ -139,7 +134,6 @@ __device__ __forceinline__ void accumulate_rows(
   const int ty = tid >> 4;   // row group
   float rx[4], ry[4];
   load_stage(x, p, lo, hi, i0, p, tid, rx);
-  if (kMasked) scale_stage(w, ws, slot, lo, hi, tid, rx);
   load_stage(y, q, lo, hi, j0, q, tid, ry);
   store_stage(xs[0], tid, rx);
   store_stage(ys[0], tid, ry);
@@ -149,7 +143,6 @@ __device__ __forceinline__ void accumulate_rows(
     const bool has_next = r0 + kStageRows < hi;
     if (has_next) {
       load_stage(x, p, r0 + kStageRows, hi, i0, p, tid, rx);
-      if (kMasked) scale_stage(w, ws, slot, r0 + kStageRows, hi, tid, rx);
       load_stage(y, q, r0 + kStageRows, hi, j0, q, tid, ry);
     }
 #pragma unroll
@@ -227,33 +220,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
   if (lo < hi)
-    accumulate_rows<T, false>(x, y, nullptr, 0, 0, lo, hi, i0, j0, p, q, xs,
-                              ys, acc);
+    accumulate_rows<T>(x, y, lo, hi, i0, j0, p, q, xs, ys, acc);
   store_tile(out + fold * p * q, i0, j0, p, q, acc);
-}
-
-// grid = (ceil(q / 128), ceil(p / 128), s); block = 256 threads.  Block
-// (j, i, slot) sweeps all m rows with x scaled by the slot's column of w.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    xty_folds_masked_kernel(const T* __restrict__ x, const T* __restrict__ z,
-                            const T* __restrict__ w, float* __restrict__ out,
-                            long long m, long long p, long long q,
-                            long long s) {
-  __shared__ __align__(16) float xs[2][kStageRows][kBlockI];
-  __shared__ __align__(16) float zs[2][kStageRows][kBlockJ];
-  const long long slot = blockIdx.z;
-  const long long i0 = static_cast<long long>(blockIdx.y) * kBlockI;
-  const long long j0 = static_cast<long long>(blockIdx.x) * kBlockJ;
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-  if (m > 0)
-    accumulate_rows<T, true>(x, z, w, s, slot, 0, m, i0, j0, p, q, xs, zs,
-                             acc);
-  store_tile(out + slot * p * q, i0, j0, p, q, acc);
 }
 
 // out[i] = part[0][i] + part[1][i] + … + part[splits − 1][i], in that
@@ -305,21 +273,29 @@ int launch(const void* x, const void* y, const long long* bounds, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_masked(const void* x, const void* z, const void* w, void* out,
-                  long long m, long long p, long long q, long long s,
-                  int device, void* stream) {
-  if (s < 1 || s > 65535) return static_cast<int>(cudaErrorInvalidValue);
+// x·w_s of every slot s as the rows (s, i) of the Aᵀ side, z as the B side;
+// out (s, p, q) is their (s·p, q) product.
+int launch_masked(bool bf16, const void* x, const void* z, const void* w,
+                  void* scratch_a, void* scratch_b, void* out, long long m,
+                  long long p, long long q, long long s, int device,
+                  void* stream) {
+  if (s < 1 || m < 0 || p < 1 || q < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((q + kBlockJ - 1) / kBlockJ),
-                  static_cast<unsigned>((p + kBlockI - 1) / kBlockI),
-                  static_cast<unsigned>(s));
-  xty_folds_masked_kernel<T><<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(z),
-      static_cast<const T*>(w), static_cast<float*>(out), m, p, q, s);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const split_engine::Operand xa = {x, bf16, p, 1, s * p, p, w, bf16, s, 1,
+                                    bf16 ? 2 : 3, scratch_a};
+  const split_engine::Operand zb = {z, bf16, q, 1, q, q, nullptr, false, 0,
+                                    0, bf16 ? 1 : 3, scratch_b};
+  err = split_engine::split(xa, split_engine::kBM, m, st);
+  if (err == cudaSuccess)
+    err = split_engine::split(zb, split_engine::kBN, m, st);
+  if (err == cudaSuccess)
+    err = split_engine::product(scratch_a, xa.planes, scratch_b, zb.planes,
+                                s * p, q, m, static_cast<float*>(out), q, q,
+                                0, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -344,21 +320,24 @@ int repro_xty_folds_bf16(const void* x, const void* y,
 }
 
 // x: (m, p), z: (m, q), w: (m, s) slot weights, all row-major and of one
-// dtype; out: (s, p, q) f32 with out[k] = (x · w[:, k])ᵀ z.  Launches on
-// `stream` and returns the cudaGetLastError() code of the launch.
+// dtype; scratch_a, scratch_b: the engine's bf16 term planes of x·w and z
+// (kernels/split_engine.py sizes them); out: (s, p, q) f32 with out[k] =
+// (x · w[:, k])ᵀ z.  Launches the split passes and the product on `stream`
+// and returns the first CUDA error code that is not 0 (0 on success).
 int repro_xty_folds_masked_f32(const void* x, const void* z, const void* w,
-                               void* out, long long m, long long p,
-                               long long q, long long s, int device,
-                               void* stream) {
-  return launch_masked<float>(x, z, w, out, m, p, q, s, device, stream);
+                               void* scratch_a, void* scratch_b, void* out,
+                               long long m, long long p, long long q,
+                               long long s, int device, void* stream) {
+  return launch_masked(false, x, z, w, scratch_a, scratch_b, out, m, p, q, s,
+                       device, stream);
 }
 
 int repro_xty_folds_masked_bf16(const void* x, const void* z, const void* w,
-                                void* out, long long m, long long p,
-                                long long q, long long s, int device,
-                                void* stream) {
-  return launch_masked<__nv_bfloat16>(x, z, w, out, m, p, q, s, device,
-                                      stream);
+                                void* scratch_a, void* scratch_b, void* out,
+                                long long m, long long p, long long q,
+                                long long s, int device, void* stream) {
+  return launch_masked(true, x, z, w, scratch_a, scratch_b, out, m, p, q, s,
+                       device, stream);
 }
 
 // part: (splits, count) f32, out: (count,) f32; out = Σ_s part[s], added

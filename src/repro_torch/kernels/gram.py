@@ -4,12 +4,14 @@ Port of ``repro/kernels/gram.py``: ``xty_folds`` (per-fold ``X_fᵀY_f`` in
 one row pass), ``xty`` (``XᵀY``: the one-fold case of the same kernel, or,
 for an output too small to fill the card, that kernel over ``row_splits``
 row ranges plus an in-order sum of the partials) and
-``xty_folds_masked`` (per-slot ``(X·w_s)ᵀZ``, the streamed chunk update).
-Each wrapper takes CUDA tensors only, checks them, allocates the f32 output,
-launches on the current stream, raises on a launch error and counts the
-launch in ``LAUNCHES``.  The build happens at the first launch, so this
-module imports on a host without ``nvcc``; ``kernels.ops`` routes CPU
-tensors to the plain versions in ``kernels.ref``.
+``xty_folds_masked`` (per-slot ``(X·w_s)ᵀZ``, the streamed chunk update,
+on the split-bf16 tensor-core engine, whose scratch it allocates with
+``kernels.split_engine``).  Each wrapper takes CUDA tensors only, checks
+them, allocates the f32 output, launches on the current stream, raises on
+a launch error and counts the launch in ``LAUNCHES``.  The build happens
+at the first launch, so this module imports on a host without ``nvcc``;
+``kernels.ops`` routes CPU tensors to the plain versions in
+``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, split_engine
 
 _TILE = 128          # output tile edge of the kernel (both axes)
 _MAX_GRID_YZ = 65535
@@ -173,12 +175,14 @@ def gram(x: torch.Tensor) -> torch.Tensor:
 
 def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
                      onehot: torch.Tensor) -> torch.Tensor:
-    """Per-slot masked ``out[s] = (x · onehot[:, s])ᵀ z`` in one launch.
+    """Per-slot masked ``out[s] = (x · onehot[:, s])ᵀ z``, one counted launch.
 
     x: (m, p), z: (m, q), onehot: (m, s) slot weights (any values; the
     streamed fit passes each row's fold one-hot), all CUDA, contiguous,
     float32 or bfloat16 alike → (s, p, q) float32.  The weights scale x in
-    f32 inside the kernel; the masked operand is never materialised.
+    f32; the split pass writes the bf16 terms of x·w and z into scratch
+    (``split_engine.masked_planes``), then one tensor-core product sums the
+    kept term pairs.
     """
     _check_operands(x, z, onehot=onehot)
     m, p = x.shape
@@ -190,11 +194,16 @@ def xty_folds_masked(x: torch.Tensor, z: torch.Tensor,
     if out.numel() == 0:
         return out
     _check_grid(p)
+    na, nb = split_engine.masked_planes(x.dtype)
+    scratch_a = split_engine.scratch(s * p, m, na, split_engine.TILE_M,
+                                     x.device)
+    scratch_b = split_engine.scratch(q, m, nb, split_engine.TILE_N, x.device)
     lib = _build.load()
     fn = (lib.repro_xty_folds_masked_f32 if x.dtype == torch.float32
           else lib.repro_xty_folds_masked_bf16)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), z.data_ptr(), onehot.data_ptr(), out.data_ptr(),
+        rc = fn(x.data_ptr(), z.data_ptr(), onehot.data_ptr(),
+                scratch_a.data_ptr(), scratch_b.data_ptr(), out.data_ptr(),
                 m, p, q, s, torch.cuda.current_device(),
                 torch.cuda.current_stream().cuda_stream)
     _build.check_rc(lib, rc, "xty_folds_masked",

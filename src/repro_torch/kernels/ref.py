@@ -10,6 +10,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import split_engine
 from repro_torch.kernels.pearsonr import pearson_r_from_sums, pearson_sums
 
 
@@ -92,6 +93,53 @@ def bf16_split3(p: torch.Tensor
     # Each term's low 16 bits are zero, so these casts are exact.
     return (p1.to(torch.bfloat16), p2.to(torch.bfloat16),
             p3.to(torch.bfloat16))
+
+
+def split_product(a: torch.Tensor, b: torch.Tensor, na: int,
+                  nb: int) -> torch.Tensor:
+    """The split-bf16 engine's arithmetic, plain: ``a`` (K, M) and ``b``
+    (K, N), f32 values after their scale, are cut into ``na`` and ``nb``
+    terms by ``bf16_split3``; each kept pair's product ``aᵢᵀ·bⱼ``
+    (``split_engine.pairs``) is computed in f32, where each term product
+    is exact, and the products are summed in f32 → (M, N).  For the tests
+    and ``chip_smoke.py``; no main path calls it."""
+    ta = bf16_split3(a)[:na]
+    tb = bf16_split3(b)[:nb]
+    out = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for i, j in split_engine.pairs(na, nb):
+        out += torch.matmul(ta[i].float().T, tb[j].float())
+    return out
+
+
+def xty_folds_masked_split(x: torch.Tensor, z: torch.Tensor,
+                           onehot: torch.Tensor) -> torch.Tensor:
+    """``xty_folds_masked`` by the engine's arithmetic: the slots stacked
+    as the columns of ``x·w_s`` (scaled in f32, as ``xty_folds_masked``),
+    split by ``split_engine.masked_planes`` → (s, p, q) f32."""
+    m, p = x.shape
+    s = onehot.shape[1]
+    na, nb = split_engine.masked_planes(x.dtype)
+    xw = x.float()[None] * onehot.float().T[:, :, None]          # (s, m, p)
+    a = xw.permute(1, 0, 2).reshape(m, s * p)
+    return split_product(a, z.float(), na, nb).reshape(s, p, z.shape[1])
+
+
+def solve_lambda_grid_split(q: torch.Tensor, evals: torch.Tensor,
+                            a: torch.Tensor,
+                            lambdas: torch.Tensor) -> torch.Tensor:
+    """``solve_lambda_grid`` by the engine's arithmetic: ``A`` scaled by
+    the f32 reciprocals (as ``solve_lambda_grid``), the λ index folded
+    into its columns, split by ``split_engine.solve_planes`` → (r, p, t)
+    f32."""
+    p, t = a.shape
+    r = lambdas.shape[0]
+    na, nb = split_engine.solve_planes(q.dtype)
+    scale = 1.0 / (evals.float()[None, :] + lambdas.float()[:, None])
+    scaled = a.float()[None, :, :] * scale[:, :, None]           # (r, p, t)
+    b = scaled.permute(1, 0, 2).reshape(p, r * t)
+    out = split_product(q.float().T, b, na, nb)                  # (p, r·t)
+    return out.reshape(p, r, t).permute(1, 0, 2).contiguous()
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_kv: int,

@@ -158,14 +158,22 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "a.cu").write_text("// one\n")
+    (src / "a.cuh").write_text("// header one\n")
     monkeypatch.setattr(_build, "CSRC", src)
     _build._sources.cache_clear()
+    _build._headers.cache_clear()
     try:
         first = _build.library_path()
         (src / "a.cu").write_text("// two\n")
-        assert _build.library_path() != first
+        second = _build.library_path()
+        assert second != first
+        # A header the sources include enters the hash too.
+        (src / "a.cuh").write_text("// header two\n")
+        assert _build.library_path() != second
+        assert _build._sources() == (src / "a.cu",)
     finally:
         _build._sources.cache_clear()
+        _build._headers.cache_clear()
 
 
 @pytest.mark.parametrize("n,p,q,split", [

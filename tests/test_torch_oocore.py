@@ -123,23 +123,51 @@ def test_masked_plain_version_takes_any_weights_and_never_launches():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_xty_folds_masked_matches_plain_version(dtype):
+    """The split-bf16 tensor-core kernel against the plain version: m, p
+    and q that are multiples of no tile (128 × 192 × 32), an all-zero
+    slot, real weights, repeated launches bitwise equal, and the
+    non-finite rule (NaN where the plain version gives NaN, non-finite
+    where it gives ±Inf)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
     g = torch.Generator("cuda").manual_seed(0)
-    x = torch.randn(1037, 255, device="cuda", generator=g).to(dt)
-    z = torch.randn(1037, 391, device="cuda", generator=g).to(dt)
-    slot = torch.randint(0, 3, (1037,), device="cuda", generator=g)
-    w = torch.zeros(1037, 3, device="cuda")
-    w[slot < 2, slot[slot < 2]] = 1.0             # slot 2 stays all-zero
-    w = w.to(dt)
     tgram.reset_launches()
+    for m, p, q in [(1037, 255, 391), (333, 131, 197)]:
+        x = torch.randn(m, p, device="cuda", generator=g).to(dt)
+        z = torch.randn(m, q, device="cuda", generator=g).to(dt)
+        slot = torch.randint(0, 3, (m,), device="cuda", generator=g)
+        w = torch.zeros(m, 3, device="cuda")
+        w[slot < 2, slot[slot < 2]] = 1.0         # slot 2 stays all-zero
+        for wt in (w, w * torch.rand(m, 3, device="cuda", generator=g)):
+            wt = wt.to(dt)
+            got = tgram.xty_folds_masked(x, z, wt)
+            want = tref.xty_folds_masked(x, z, wt)
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * want.abs().max().item())
+            assert not got[2].any()
+            assert torch.equal(got, tgram.xty_folds_masked(x, z, wt))
+    assert tgram.LAUNCHES["xty_folds_masked"] == 8
+    # A NaN in x under a zero weight, an Inf in x under its weight, an Inf
+    # in z.
+    x = torch.randn(203, 129, device="cuda", generator=g)
+    z = torch.randn(203, 70, device="cuda", generator=g)
+    w = torch.zeros(203, 2, device="cuda")
+    w[:100, 0] = 1.0
+    w[100:, 1] = 1.0
+    x[5, 3] = float("nan")
+    w[5] = 0.0
+    x[120, 9] = float("inf")
+    z[150, 7] = float("inf")
+    x, z, w = x.to(dt), z.to(dt), w.to(dt)
     got = tgram.xty_folds_masked(x, z, w)
     want = tref.xty_folds_masked(x, z, w)
-    torch.testing.assert_close(got, want, rtol=1e-4,
-                               atol=1e-4 * want.abs().max().item())
-    assert tgram.LAUNCHES["xty_folds_masked"] == 1
-    assert not got[2].any()
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    assert torch.isnan(got[torch.isnan(want)]).all()
+    assert not torch.isfinite(got[torch.isinf(want)]).any()
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4,
+                               atol=1e-4 * want[fin].abs().max().item())
 
 
 # ---------------------------------------------------------------------------

@@ -239,11 +239,16 @@ def test_solve_wrapper_refuses_cpu_tensors_and_ops_route_cpu_to_plain():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_solve_lambda_grid_matches_plain_version(dtype):
+    """The split-bf16 tensor-core kernel against the plain version, Q row-
+    and column-major: the reference's shapes, edge sizes and p, t that are
+    multiples of no tile (128 × 192 × 32), repeated launches bitwise
+    equal, and the non-finite rule for an Inf and a NaN in A."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     tdt = getattr(torch, dtype)
     tsolve.reset_launches()
-    for p, t, r in SHAPES_SOLVE + [(1, 1, 1), (257, 3, 2)]:
+    shapes = SHAPES_SOLVE + [(1, 1, 1), (257, 3, 2), (161, 445, 3)]
+    for p, t, r in shapes:
         q, evals, a, lams = _solve_inputs(p, t, r, p + t + r)
         ev, lm = (torch.from_numpy(v).cuda() for v in (evals, lams))
         ta = torch.from_numpy(a).cuda().to(tdt)
@@ -255,4 +260,18 @@ def test_cuda_solve_lambda_grid_matches_plain_version(dtype):
             want = tref.solve_lambda_grid(tq, ev, ta, lm)
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 *
                                        want.abs().max().item())
-    assert tsolve.LAUNCHES["solve_lambda_grid"] == 2 * (len(SHAPES_SOLVE) + 2)
+            assert torch.equal(got, tsolve.solve_lambda_grid(tq, ev, ta, lm))
+    assert tsolve.LAUNCHES["solve_lambda_grid"] == 4 * len(shapes)
+    q, evals, a, lams = (torch.from_numpy(v).cuda()
+                         for v in _solve_inputs(130, 70, 4, 9))
+    a[3, 5] = float("inf")
+    a[7, 1] = float("nan")
+    q, a = q.T.contiguous().T.to(tdt), a.to(tdt)
+    got = tsolve.solve_lambda_grid(q, evals, a, lams)
+    want = tref.solve_lambda_grid(q, evals, a, lams)
+    assert torch.isnan(want).any()
+    assert torch.isnan(got[torch.isnan(want)]).all()
+    assert not torch.isfinite(got[torch.isinf(want)]).any()
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4,
+                               atol=1e-4 * want[fin].abs().max().item())

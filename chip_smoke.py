@@ -16,13 +16,14 @@ nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
    kernel and the nearest library call (in turns: library, kernel,
    kernel, library), the plain version, and the card's bound for the same
    work; ``xty``'s two dual parts each on its own, with ``XXᵀ``
-   (row-split) beside the unsplit one-fold launch of the same kernel and
-   its repeated launches held bitwise equal.  ``xty_folds_masked`` runs on
-   the split-bf16 tensor-core engine: its bound is the tensor-core time of
-   the bf16 term products it computes, the f32-rate bound beside it; its
-   small cases also check repeated launches bitwise equal and the
-   non-finite rule (NaN where the plain version is NaN, non-finite where
-   it is ±Inf).
+   (row-split) beside the row loop's unsplit one-range launch and its
+   repeated launches held bitwise equal.  ``xty_folds`` and
+   ``xty_folds_masked`` run on the split-bf16 tensor-core engine: their
+   bound is the tensor-core time of the bf16 term products they compute,
+   the f32-rate bound beside it; their small cases also check the split
+   model, repeated launches bitwise equal and the non-finite rule (NaN
+   where the plain version is NaN, non-finite where it is ±Inf), and
+   ``xty_folds`` two launches bitwise equal at the full shape.
 3. The primal slice at the paper's full size (``parcels``: n=69,202
    training rows, p=16,384, t=444) through ``pipeline.run``: 76,891 rows
    are generated so that the 90/10 split leaves the fit the paper's
@@ -46,11 +47,15 @@ nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
    S=4,096 tokens): flash through ``mha_flash`` on strided views of one
    projection, as the model calls it (B=8, S=T=4,096, H=32, K=80, causal,
    bf16), and through ``flash_attention`` on contiguous (B·H, S, K) copies;
-   ssd_intra at N=128 chunks, Q=256, H=80, P=64, f32.  Times of the kernel,
-   the plain version, the nearest library call (flash:
-   ``scaled_dot_product_attention``, backend named) and the card's bound
-   (bf16 flash: the largest of the tensor-core time of Q·Kᵀ and the three
-   split P·V products, the exponentials at the SFU rate, and the bytes).
+   ssd_intra (tensor cores, L and x split into exact bf16 terms) at N=128
+   chunks, Q=256, H=80, P=64 on f32 inputs, as the forward feeds it, and
+   on bf16 inputs; its small cases also hold it against the split model
+   (``ref.ssd_intra_split``), repeated launches bitwise equal and the
+   non-finite rule.  Times of the kernel, the plain version, the nearest
+   library call (flash: ``scaled_dot_product_attention``, backend named)
+   and the card's bound (bf16 flash and ssd_intra: the largest of the
+   tensor-core time of their bf16 term products, the exponentials at the
+   SFU rate, and the bytes; ssd_intra's f32-rate bound beside it).
 8. The full-width, full-depth zamba2-2.7b forward (63 pattern slots,
    d=2,560) in f32 parameters, once with both kernel switches on and once
    with both off: max|Δh| ≤ 1e-3·max|h|.
@@ -241,7 +246,8 @@ def phase_env() -> dict:
         print(f"[env] the same sources in one serial nvcc call: "
               f"{serial_s:.2f} s [{card}]")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "Performance Loss" in line):
             print(f"[env]   ptxas: {line.strip()}")
     return {"card": card, "build_s": build_s}
 
@@ -303,11 +309,17 @@ def phase_kernels_small() -> None:
         for n, p, q, b in fold_cases:
             x = torch.randn(n, p, device="cuda", generator=g).to(dt)
             y = torch.randn(n, q, device="cuda", generator=g).to(dt)
-            err, _ = _compare(f"xty_folds{(n, p, q, len(b))}",
-                              gram.xty_folds(x, y, b),
+            got = gram.xty_folds(x, y, b)
+            err, _ = _compare(f"xty_folds{(n, p, q, len(b))}", got,
                               ref.xty_folds(x, y, b), dn)
+            check(torch.equal(got, gram.xty_folds(x, y, b)),
+                  f"xty_folds{(n, p, q, len(b))}: repeated launches differ")
+            check(all(not got[f].any() for f, (lo, hi) in enumerate(b)
+                      if lo == hi), "xty_folds: an empty fold is not zero")
+            model = (got - ref.xty_folds_split(x, y, b)).abs().max().item()
             print(f"[kernels] xty_folds n={n} p={p} q={q} k={len(b)} {dn}: "
-                  f"max abs err {err:.3e} ok")
+                  f"max abs err {err:.3e} (against the split model "
+                  f"{model:.3e}), repeated launch bitwise equal ok")
         for n, p, q in xty_cases:
             x = torch.randn(n, p, device="cuda", generator=g).to(dt)
             y = torch.randn(n, q, device="cuda", generator=g).to(dt)
@@ -364,6 +376,18 @@ def phase_kernels_small() -> None:
                               ref.xty_folds_masked(x, z, w))
         print(f"[kernels] xty_folds_masked non-finite inputs {dn}: NaN where "
               f"plain NaN, non-finite where plain ±Inf, finite max abs err "
+              f"{err:.3e} ok")
+        # xty_folds: a NaN in x and an Inf in y, in different folds.
+        b = fold_bounds(203, 5)
+        x = torch.randn(203, 129, device="cuda", generator=g)
+        y = torch.randn(203, 70, device="cuda", generator=g)
+        x[5, 3] = float("nan")
+        y[150, 7] = float("inf")
+        x, y = x.to(dt), y.to(dt)
+        err = _nonfinite_rule("xty_folds non-finite", gram.xty_folds(x, y, b),
+                              ref.xty_folds(x, y, b))
+        print(f"[kernels] xty_folds non-finite inputs {dn}: NaN where plain "
+              f"NaN, non-finite where plain ±Inf, finite max abs err "
               f"{err:.3e} ok")
     # The wrappers refuse what the kernel does not take.
     x = torch.randn(8, 4, device="cuda")
@@ -459,17 +483,31 @@ def phase_kernels_full(card: str, reps: int) -> dict:
     def lib_folds(x, y):
         return [torch.matmul(x[lo:hi].T, y[lo:hi]) for lo, hi in b]
 
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    first = gram.xty_folds(X, Z, b)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    check(torch.equal(first, gram.xty_folds(X, Z, b)),
+          "two xty_folds launches at the full shape differ")
+    del first
+    free()
     rec["xty_folds"] = _measure(
         f"xty_folds n={n} p={p} q={q} k={k}",
         lambda x, y: gram.xty_folds(x, y, b),
         lambda x, y: ref.xty_folds(x, y, b), lib_folds, (X, Z),
-        2.0 * n * p * q, 4.0 * (n * p + n * q + k * p * q), card, reps)
+        2.0 * n * p * q, 4.0 * (n * p + n * q + k * p * q), card, reps,
+        products=len(split_engine.pairs(*split_engine.folds_planes(
+            X.dtype))))
+    print(f"[kernels] xty_folds: two launches bitwise equal; one launch "
+          f"allocates {extra / 2**30:.2f} GiB (output and the engine's "
+          f"scratch for the largest fold) [{card}]")
     del X, Z
     free()
     # Dual: XXᵀ on a contiguous Xᵀ, and Xᵀα, at the whole_brain_mor shape,
     # each part measured on its own.  XXᵀ's 1,000² output takes the row
-    # split; the unsplit one-fold launch of the same kernel is timed beside
-    # it, in turns (unsplit, split, split, unsplit).
+    # split; the row loop's unsplit one-range launch is timed beside it, in
+    # turns (unsplit, split, split, unsplit).
     n, p, t = 1_000, 16_384, 2_000
     X = torch.randn(n, p, device="cuda", generator=g)
     Xt = X.T.contiguous()
@@ -492,12 +530,12 @@ def phase_kernels_full(card: str, reps: int) -> dict:
                  4.0 * (n * p + n * t + p * t), card, reps * 10)]
     unsplit = [(0, p)]
     turns = []
-    for fn in (lambda: gram.xty_folds(Xt, Xt, unsplit),
+    for fn in (lambda: gram._launch(Xt, Xt, unsplit, "xty"),
                lambda: gram.xty(Xt, Xt), lambda: gram.xty(Xt, Xt),
-               lambda: gram.xty_folds(Xt, Xt, unsplit)):
+               lambda: gram._launch(Xt, Xt, unsplit, "xty")):
         turns.append(time_ms(fn, reps * 10))
     one, split = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    print(f"[kernels] xty XXt: unsplit one-fold launch {turns[0]:.3f}/"
+    print(f"[kernels] xty XXt: unsplit one-range launch {turns[0]:.3f}/"
           f"{turns[3]:.3f} ms, {len(splits)} row splits {turns[1]:.3f}/"
           f"{turns[2]:.3f} ms (×{one / split:.2f}); split launches bitwise "
           f"equal [{card}]")
@@ -875,14 +913,38 @@ def phase_backbone_kernels_small() -> None:
                   f"softcap={softcap} {dn}: max abs err mha {err:.3e}, "
                   f"(BH,S,K) {err2:.3e} ok")
         for n, q_, h, p in [(3, 100, 5, 70), (2, 256, 8, 64), (4, 8, 16, 32),
-                            (1, 64, 3, 130), (2, 1, 2, 1)]:
+                            (1, 64, 3, 130), (2, 1, 2, 1), (2, 256, 17, 64),
+                            (1, 300, 9, 48)]:
             cb = (randn(n, q_, q_) / q_ ** 0.5).to(dt)
             la = torch.cumsum(-randn(n, q_, h).abs() * 0.05, 1).to(dt)
             x = randn(n, q_, h, p).to(dt)
-            err = _close(f"ssd_intra{(n, q_, h, p)}", ssd.ssd_intra(cb, la, x),
+            got = ssd.ssd_intra(cb, la, x)
+            err = _close(f"ssd_intra{(n, q_, h, p)}", got,
                          ref.ssd_intra(cb, la, x))
+            model = _close(f"ssd_intra{(n, q_, h, p)} split model", got,
+                           ref.ssd_intra_split(cb, la, x))
+            check(torch.equal(got, ssd.ssd_intra(cb, la, x)),
+                  f"ssd_intra{(n, q_, h, p)}: repeated launches differ")
             print(f"[backbone-kernels] ssd_intra N={n} Q={q_} H={h} P={p} "
-                  f"{dn}: max abs err {err:.3e} ok")
+                  f"{dn}: max abs err {err:.3e} (against the split model "
+                  f"{model:.3e}), repeated launch bitwise equal ok")
+        # Non-finite values on and off the walk: an Inf and a NaN of x past
+        # a tile's diagonal (the reference's 0·Inf), an Inf of cb below the
+        # diagonal, a NaN and an Inf of cb above it.
+        n, q_, h, p = 2, 256, 9, 64
+        cb = randn(n, q_, q_) / q_ ** 0.5
+        la = torch.cumsum(-randn(n, q_, h).abs() * 0.05, 1)
+        x = randn(n, q_, h, p)
+        x[0, 200, 3, 5], x[1, 10, 0, 7] = float("inf"), float("nan")
+        x[1, 70, 8, 63] = float("-inf")
+        cb[0, 5, 2], cb[0, 30, 150] = float("inf"), float("nan")
+        cb[1, 100, 50], cb[1, 3, 40] = float("inf"), float("inf")
+        cb, la, x = cb.to(dt), la.to(dt), x.to(dt)
+        err = _nonfinite_rule("ssd_intra non-finite", ssd.ssd_intra(cb, la, x),
+                              ref.ssd_intra(cb, la, x))
+        print(f"[backbone-kernels] ssd_intra non-finite inputs {dn}: NaN where "
+              f"plain NaN, non-finite where plain ±Inf, finite max abs err "
+              f"{err:.3e} ok")
     # The wrappers refuse what the kernels do not take.
     q = torch.zeros(1, 8, 2, 80, device="cuda")
     for bad in (dict(n_kv=3), dict(window=0), dict(softcap=-1.0)):
@@ -936,7 +998,7 @@ def _sdpa(q, k, v):
 def phase_backbone_kernels_full(card: str, reps: int) -> dict:
     import torch
     from repro_torch import configs
-    from repro_torch.kernels import attention, ref, ssd
+    from repro_torch.kernels import attention, ref, split_engine, ssd
     from repro_torch.models.ssm import _dims
 
     cfg = configs.get_config(BACKBONE)
@@ -1010,7 +1072,7 @@ def phase_backbone_kernels_full(card: str, reps: int) -> dict:
     del q, k, v, qf, kf, vf, lib_fn
     free()
     # ssd_intra: one Mamba2 block's within-chunk term (f32, as the SSD
-    # forward computes it).
+    # forward computes it), then the same values as bf16 inputs.
     _, H, P, _, _ = _dims(cfg)
     Q = cfg.ssm.chunk
     N = BATCH * SEQ // Q
@@ -1018,26 +1080,47 @@ def phase_backbone_kernels_full(card: str, reps: int) -> dict:
     la = torch.cumsum(-torch.randn(N, Q, H, device="cuda",
                                    generator=g).abs() * 0.05, 1)
     x = torch.randn(N, Q, H, P, device="cuda", generator=g)
-    got = ssd.ssd_intra(cb, la, x)
-    want = ref.ssd_intra(cb, la, x)
-    err = _close(f"ssd_intra N={N} Q={Q} H={H} P={P}", got, want)
-    scale = want.abs().max().item()
-    del got, want
-    free()
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        args = [a.to(dt) for a in (cb, la, x)]
+        got = ssd.ssd_intra(*args)
+        want = ref.ssd_intra(*args)
+        dn = str(dt).removeprefix("torch.")
+        errs[dn] = _close(f"ssd_intra N={N} Q={Q} H={H} P={P} {dn}", got,
+                          want)
+        scale = want.abs().max().item()
+        del got, want, args
+        free()
     ms = time_ms(lambda: ssd.ssd_intra(cb, la, x), reps * 10)
     plain_ms = time_ms(lambda: ref.ssd_intra(cb, la, x), reps)
+    # Bound of the tensor-core design, the largest of three: the kept bf16
+    # term products of L and x (6 for f32 x) at the bf16 rate, one
+    # exponential per (q, k ≤ q, h) at the SFU rate (bf16 peak / 256, as
+    # flash's), and the bytes of cb, la, x and y.  Beside it, the f32-rate
+    # bound the CUDA-core kernel it replaces faced.
     pairs = Q * (Q + 1) / 2
     flops = 2.0 * N * H * P * pairs
     nbytes = 4.0 * (N * Q * Q + N * Q * H + 2 * N * Q * H * P)
-    bound, by = _bound_ms(flops, nbytes, card)
-    print(f"[backbone-kernels] ssd_intra N={N} Q={Q} H={H} P={P} f32: max "
-          f"abs err {err:.3e} (rtol/atol 2e-4, max|plain| {scale:.4e}); "
-          f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-          f"{plain_ms:.3f} ms, library none, bound {bound:.3f} ms ({by}) "
+    products = len(split_engine.pairs(3, 3))
+    t_tc = products * flops / bf16_peak(card) * 1e3
+    t_exp = N * H * pairs / (bf16_peak(card) / 256) * 1e3
+    t_bytes = nbytes / peaks(card)[1] * 1e3
+    bound = max(t_tc, t_exp, t_bytes)
+    by = "bytes" if t_bytes >= max(t_tc, t_exp) else "operations"
+    bound_f32, _ = _bound_ms(flops, nbytes, card)
+    print(f"[backbone-kernels] ssd_intra N={N} Q={Q} H={H} P={P}: max abs "
+          f"err f32 {errs['float32']:.3e}, bf16 inputs {errs['bfloat16']:.3e} "
+          f"(rtol/atol 2e-4, max|plain| {scale:.4e}); kernel {ms:.3f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of the function's {flops:.4e} "
+          f"FLOPs), plain {plain_ms:.3f} ms, library none, bound "
+          f"{bound:.3f} ms ({by}: tensor cores {t_tc:.3f} ms for {products} "
+          f"bf16 term products, exponentials {t_exp:.3f} ms at the SFU "
+          f"rate, bytes {t_bytes:.3f} ms), f32-rate bound {bound_f32:.3f} ms "
           f"[{card}]")
     rec["ssd_intra"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                         "bound_ms": bound, "bound_by": by,
-                        "max_abs_err": err}
+                        "bound_f32_ms": bound_f32,
+                        "max_abs_err": errs["float32"]}
     del cb, la, x
     free()
     return rec
@@ -1696,7 +1779,8 @@ def main() -> int:
     launches["solve_lambda_grid"] = phase_seed_primal(card)
     phase_seed_dual(card)
     csrc = "src/repro_torch/kernels/csrc/"
-    where = {"xty_folds": ("gram.cu", "src/repro/kernels/gram.py:158"),
+    where = {"xty_folds": ("split_engine.cu",
+                           "src/repro/kernels/gram.py:158"),
              "xty": ("gram.cu", "src/repro/kernels/gram.py:72"),
              "xty_folds_masked": ("split_engine.cu",
                                   "src/repro/kernels/gram.py:233"),

@@ -104,11 +104,18 @@ def load() -> ctypes.CDLL:
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name in ("repro_xty_folds_f32", "repro_xty_folds_bf16"):
+    for name in ("repro_xty_rows_f32", "repro_xty_rows_bf16"):
         fn = getattr(lib, name)
         # x, y, bounds (host int64 k×2), out, p, q, k, device, stream
         fn.argtypes = [ptr, ptr, ctypes.POINTER(i64), ptr, i64, i64, i32, i32,
                        ptr]
+        fn.restype = i32
+    for name in ("repro_xty_folds_f32", "repro_xty_folds_bf16"):
+        fn = getattr(lib, name)
+        # x, y, bounds (host int64 k×2), scratch_a, scratch_b, out, p, q, k,
+        # device, stream
+        fn.argtypes = [ptr, ptr, ctypes.POINTER(i64), ptr, ptr, ptr, i64, i64,
+                       i32, i32, ptr]
         fn.restype = i32
     for name in ("repro_xty_folds_masked_f32", "repro_xty_folds_masked_bf16"):
         fn = getattr(lib, name)
@@ -125,8 +132,8 @@ def load() -> ctypes.CDLL:
         fn.restype = i32
     for name in ("repro_ssd_intra_f32", "repro_ssd_intra_bf16"):
         fn = getattr(lib, name)
-        # cb, la, x, out, N, Q, H, P, device, stream
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
+        # cb, la, x, out, nonfinite flag, N, Q, H, P, device, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
         fn.restype = i32
     for name in ("repro_solve_lambda_grid_f32",
                  "repro_solve_lambda_grid_bf16"):

@@ -1,27 +1,26 @@
-// Cross-Gram kernels on Hopper, all f32-accumulated:
+// Cross-Gram kernels on Hopper, all f32-accurate:
 //   out[f] = X[lo_f:hi_f]ᵀ · Y[lo_f:hi_f]          (xty_folds, xty)
 //   out[s] = (X · diag(w[:, s]))ᵀ · Z              (xty_folds_masked)
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/gram.py:
-//   * xty_folds (the per-fold [G | C] statistics of core/foldstats.py), and
-//   * xty (XᵀY; the dual path's XXᵀ and Xᵀα), the same kernel over one row
-//     range or, where the output is too small to fill the card, over S
-//     contiguous row ranges whose S partial products a second small kernel
-//     adds in order (kernels/gram.py::row_splits picks S);
-//   * xty_folds_masked (every chunk update of the streamed fit,
-//     foldstats._FixedShapeUpdate; TPU kernel gram.py xty_folds_masked) runs
-//     on the split-bf16 tensor-core engine (split_engine.cu), not on the row
-//     loop below: see "The masked kernel" at the end of this note.
+//   * xty_folds (the per-fold [G | C] statistics of core/foldstats.py, one
+//     launch per in-memory fit) and xty_folds_masked (every chunk update of
+//     the streamed fit, foldstats._FixedShapeUpdate) run on the split-bf16
+//     tensor-core engine (split_engine.cu): see "The engine's callers" at
+//     the end of this note;
+//   * xty (XᵀY; the dual path's XXᵀ and Xᵀα, the seed path's Grams) runs on
+//     the CUDA-core row loop below: over one row range or, where the output
+//     is too small to fill the card, over S contiguous row ranges whose S
+//     partial products a second small kernel adds in order
+//     (kernels/gram.py::row_splits picks S).
 //
-// What bounds it on this card: f32 arithmetic.  The reference accumulates in
-// f32 (preferred_element_type), so the port uses no TF32 tensor-core `mma`;
-// each output element costs 2·rows FLOPs of f32 FMA on the CUDA cores (67
-// TFLOP/s on an H100 SXM at 700 W) against 4 bytes read per input element.
-// At the main path's shapes (n = 69,202 rows, p = 16,384, q = 16,828) that is
-// ~3.8e13 FLOPs for ~15 GB of traffic: compute-bound by two orders of
-// magnitude.  A narrow output is bound by the blocks it can keep busy: the
-// dual fit's XXᵀ (16,384 rows, a 1,000² output) is 64 tiles, under half
-// the 132 SMs at 2 blocks each.
+// The row loop.  What bounds it on this card: f32 arithmetic.  The
+// reference accumulates in f32 (preferred_element_type) and the loop uses
+// no TF32 `mma`; each output element costs 2·rows FLOPs of f32 FMA on the
+// CUDA cores (67 TFLOP/s on an H100 SXM at 700 W) against 4 bytes read per
+// input element.  A narrow output is bound by the blocks it can keep busy:
+// the dual fit's XXᵀ (16,384 rows, a 1,000² output) is 64 tiles, under
+// half the 132 SMs at 2 blocks each.
 //
 // What the design does about it:
 //   * Each block owns one (row range, 128-row i tile, 128-column j tile)
@@ -32,15 +31,14 @@
 //     results.
 //   * xty with fewer than 2 × 132 output tiles cuts the rows into S equal
 //     ranges (tiles × S ≥ 264, each range ≥ 256 rows, S ≤ 64) and launches
-//     the fold kernel with them as its "folds" into an (S, p, q) scratch;
+//     the row loop with them into an (S, p, q) scratch;
 //     xty_split_sum_kernel adds the S partials in split order.  Repeated
-//     launches are bitwise equal.  A full grid (S = 1) is the one-fold
+//     launches are bitwise equal.  A full grid (S = 1) is the one-range
 //     launch unchanged.
 //   * Rows are read in place between the range bounds (int64, passed by
 //     value as a kernel parameter, so a launch queues no host-to-device
-//     copy and no stream synchronisation).  There is no repack of X into
-//     fold-aligned blocks and no zero padding: ragged n, p and q are masked
-//     at the loads and the store.
+//     copy and no stream synchronisation).  There is no repack and no zero
+//     padding: ragged n, p and q are masked at the loads and the store.
 //   * Register blocking: 256 threads, 8×8 f32 accumulators each, fed from a
 //     double-buffered shared-memory stage of 8 rows × 128 columns per
 //     operand, so each shared-memory float feeds 8 FMAs.  The next stage is
@@ -48,27 +46,40 @@
 //     multiplied.
 //   * bf16 inputs are converted to f32 with __bfloat162float at the load;
 //     the product of two bf16 values is exact in f32.
-//   * Every offset is int64: at the main path's shapes n·(p+t) is ~1.2e9
-//     elements and the (k, p, q) output ~1.4e9.
-// The masked kernel, out[s] = (x · diag(w[:, s]))ᵀ z: a split pass writes
-// the bf16 terms of x·w_s (the weight applied in f32 first, as the plain
-// version's x.float() * w; all slots stacked as the rows of one operand)
-// and of z into scratch the wrapper allocates, then one tensor-core product
-// over the kept term pairs writes the (s·p, q) = (s, p, q) output.  f32
-// operands split into 3 + 3 terms, 6 products kept; bf16 x·w (exact in f32)
-// into 2 and bf16 z into 1, 2 products.  Bound: tensor-core operations,
-// 6 × 2·s·m·p·q = 5.4e13 at the streamed fit's chunk (m = 8,192,
-// p = 16,384, q = 16,828, s = 2): 54.7 ms at 989 TFLOP/s, against 134.8 ms
-// at the f32 rate of the row loop it replaces.  Scratch: 3 × 32,768 ×
-// 8,192 × 2 B = 1.61 GB for x·w and 0.83 GB for z.  Non-finite inputs: NaN
-// where the plain version gives NaN, NaN where it gives ±Inf; a 0 weight
-// on a NaN or Inf row gives NaN, as the reference keeps 0·Inf and 0·NaN
-// rows as NaN; an all-zero slot of finite rows gives an exact zero tile.
-// The engine's note (split_engine.cu) has the split rule and what is not
-// done yet; skipping a slot's all-zero stages is not done.
-// Not done yet (later work): the row loop (accumulate_rows) reaches ~43
-// TFLOP/s of the 67; xty_folds and xty are to move onto the split engine.
-// Xᵀα (2,048 tiles, only 1,000 rows deep) is not split.
+//   * Every offset is int64.
+// Not done yet (later work): the row loop reaches ~43 TFLOP/s of the 67,
+// and xty (Xᵀα, the row-split XXᵀ) is to move onto the split engine, after
+// which accumulate_rows has no caller.
+//
+// The engine's callers.  Each writes the bf16 terms of its two operands
+// into scratch the wrapper allocates (split_engine::split), then sums the
+// kept term products on the tensor cores (split_engine::product); the
+// engine's note (split_engine.cu) has the split rule, the non-finite rule
+// and what is not done yet.
+//   * xty_folds: per fold f with lo < hi, x[lo:hi] is the Aᵀ side (rows p,
+//     K = hi − lo) and y[lo:hi] the B side, read in place from lo rows in,
+//     and their product lands in out[f]; the folds run one after another
+//     on the stream, reusing one scratch sized for the largest fold.  An
+//     empty fold is a cudaMemsetAsync of its slice: exact zeros.  f32
+//     operands split into 3 + 3 terms, 6 products kept; bf16 ones are one
+//     exact term each, 1 product.  Bound: tensor-core operations, 6 ×
+//     2·n·p·q = 2.3e14 at the parcels fit (n = 69,202, p = 16,384,
+//     q = 16,828): 231.5 ms at 989 TFLOP/s, against 569.5 ms at the f32
+//     rate of the row loop it replaces.  Scratch: 3 × 16,384 × 13,856 ×
+//     2 B = 1.36 GB for x and 3 × 16,896 × 13,856 × 2 B = 1.40 GB for
+//     [X | Y], where one split of all 69,202 rows would take 13.8 GB.
+//   * xty_folds_masked: the bf16 terms of x·w_s (the weight applied in f32
+//     first, as the plain version's x.float() * w; all slots stacked as
+//     the rows of one operand) and of z; one product over the kept term
+//     pairs writes the (s·p, q) = (s, p, q) output.  f32 operands split
+//     into 3 + 3 terms, 6 products kept; bf16 x·w (exact in f32) into 2 and
+//     bf16 z into 1, 2 products.  Bound: 6 × 2·s·m·p·q = 5.4e13 at the
+//     streamed fit's chunk (m = 8,192, p = 16,384, q = 16,828, s = 2): 54.7
+//     ms at 989 TFLOP/s, against 134.8 ms at the f32 rate.  Scratch: 3 ×
+//     32,768 × 8,192 × 2 B = 1.61 GB for x·w and 0.83 GB for z.  A 0 weight
+//     on a NaN or Inf row gives NaN, as the reference keeps 0·Inf and 0·NaN
+//     rows as NaN; an all-zero slot of finite rows gives an exact zero
+//     tile.  Skipping a slot's all-zero stages is not done.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -273,6 +284,45 @@ int launch(const void* x, const void* y, const long long* bounds, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Fold f of xty_folds on the engine: x[lo:hi] as the Aᵀ side (rows p,
+// K = hi − lo), y[lo:hi] as the B side, their product into out[f]; both
+// operands' sources start lo rows in, and each fold's split passes reuse
+// the same scratch (the wrapper sizes it for the largest fold; the stream
+// orders the passes).  An empty fold is an exact zero slice.
+int launch_folds(bool bf16, const void* x, const void* y,
+                 const long long* bounds, void* scratch_a, void* scratch_b,
+                 void* out, long long p, long long q, int k, int device,
+                 void* stream) {
+  if (k < 1 || k > kMaxFolds || p < 1 || q < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int planes = bf16 ? 1 : 3;
+  const size_t esize = bf16 ? 2 : 4;
+  for (int f = 0; f < k && err == cudaSuccess; ++f) {
+    const long long lo = bounds[2 * f], hi = bounds[2 * f + 1];
+    float* o = static_cast<float*>(out) + static_cast<long long>(f) * p * q;
+    if (hi <= lo) {
+      err = cudaMemsetAsync(o, 0, static_cast<size_t>(p * q) * 4, st);
+      continue;
+    }
+    const split_engine::Operand xa = {
+        static_cast<const char*>(x) + lo * p * esize, bf16, p, 1, p, p,
+        nullptr, false, 0, 0, planes, scratch_a};
+    const split_engine::Operand yb = {
+        static_cast<const char*>(y) + lo * q * esize, bf16, q, 1, q, q,
+        nullptr, false, 0, 0, planes, scratch_b};
+    err = split_engine::split(xa, split_engine::kBM, hi - lo, st);
+    if (err == cudaSuccess)
+      err = split_engine::split(yb, split_engine::kBN, hi - lo, st);
+    if (err == cudaSuccess)
+      err = split_engine::product(scratch_a, planes, scratch_b, planes, p, q,
+                                  hi - lo, o, q, q, 0, st);
+  }
+  return static_cast<int>(err);
+}
+
 // x·w_s of every slot s as the rows (s, i) of the Aᵀ side, z as the B side;
 // out (s, p, q) is their (s·p, q) product.
 int launch_masked(bool bf16, const void* x, const void* z, const void* w,
@@ -302,21 +352,42 @@ int launch_masked(bool bf16, const void* x, const void* z, const void* w,
 
 extern "C" {
 
-// x: (n, p) row-major, y: (n, q) row-major, bounds: k × (lo, hi) int64 in
-// host memory (1 ≤ k ≤ 64), out: (k, p, q) f32.  Launches on `stream` and
-// returns the cudaGetLastError() code of the launch (0 on success).
-int repro_xty_folds_f32(const void* x, const void* y,
-                        const long long* bounds,
-                        void* out, long long p, long long q, int k, int device,
-                        void* stream) {
+// The row loop (xty's kernel).  x: (n, p) row-major, y: (n, q) row-major,
+// bounds: k × (lo, hi) int64 in host memory (1 ≤ k ≤ 64), out: (k, p, q)
+// f32.  Launches on `stream` and returns the cudaGetLastError() code of the
+// launch (0 on success).
+int repro_xty_rows_f32(const void* x, const void* y, const long long* bounds,
+                       void* out, long long p, long long q, int k, int device,
+                       void* stream) {
   return launch<float>(x, y, bounds, out, p, q, k, device, stream);
 }
 
-int repro_xty_folds_bf16(const void* x, const void* y,
-                         const long long* bounds,
-                         void* out, long long p, long long q, int k,
-                         int device, void* stream) {
+int repro_xty_rows_bf16(const void* x, const void* y, const long long* bounds,
+                        void* out, long long p, long long q, int k,
+                        int device, void* stream) {
   return launch<__nv_bfloat16>(x, y, bounds, out, p, q, k, device, stream);
+}
+
+// xty_folds on the split engine.  x: (n, p), y: (n, q), row-major, one
+// dtype; bounds: k × (lo, hi) int64 in host memory (1 ≤ k ≤ 64);
+// scratch_a, scratch_b: the engine's bf16 term planes of x and y for the
+// largest fold (kernels/split_engine.py sizes them); out: (k, p, q) f32.
+// Launches each fold's split passes and product on `stream` and returns
+// the first CUDA error code that is not 0 (0 on success).
+int repro_xty_folds_f32(const void* x, const void* y, const long long* bounds,
+                        void* scratch_a, void* scratch_b, void* out,
+                        long long p, long long q, int k, int device,
+                        void* stream) {
+  return launch_folds(false, x, y, bounds, scratch_a, scratch_b, out, p, q, k,
+                      device, stream);
+}
+
+int repro_xty_folds_bf16(const void* x, const void* y,
+                         const long long* bounds, void* scratch_a,
+                         void* scratch_b, void* out, long long p, long long q,
+                         int k, int device, void* stream) {
+  return launch_folds(true, x, y, bounds, scratch_a, scratch_b, out, p, q, k,
+                      device, stream);
 }
 
 // x: (m, p), z: (m, q), w: (m, s) slot weights, all row-major and of one

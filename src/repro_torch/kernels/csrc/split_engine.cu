@@ -1,7 +1,11 @@
 // The split-bf16 tensor-core engine: out = A'ᵀ · B' in f32 accuracy on the
 // bf16 tensor cores (interface and operand rules in split_engine.cuh).
 //
-// Serves two kernels, each of which folds its batch into one axis:
+// Serves three kernels, each of which folds its batch into one axis or
+// into consecutive products:
+//   * xty_folds (gram.cu; TPU kernel src/repro/kernels/gram.py xty_folds):
+//     out[f] = x[lo:hi]ᵀ y[lo:hi], one product per fold over K = hi − lo
+//     rows, the folds one after another on the stream sharing one scratch;
 //   * xty_folds_masked (gram.cu; TPU kernel src/repro/kernels/gram.py
 //     xty_folds_masked): out[s] = (x · diag(w[:, s]))ᵀ z, the slot s folded
 //     into the rows of A' = [x·w_0 | x·w_1 | …], so the (s, p, q) output is
@@ -38,10 +42,12 @@
 //
 // What bounds it on this card: bf16 tensor-core operations at the kept
 // pair count, 6 × 2·M·N·K for f32 operands (989 TFLOP/s dense on an H100
-// SXM at 700 W): 54.7 ms for the streamed fit's chunk (s·p = 32,768,
-// q = 16,828, m = 8,192) and 15.9 ms for the seed path's solve (p =
-// 16,384, r·t = 4,884), against 134.8 and 39.1 ms at the f32 CUDA-core
-// rate.  The split pass moves ~3.5 GB (~1 ms) at the chunk's shape.
+// SXM at 700 W): 231.5 ms for the in-memory fit's five folds (p = 16,384,
+// q = 16,828, K = 69,202 in all), 54.7 ms for the streamed fit's chunk
+// (s·p = 32,768, q = 16,828, m = 8,192) and 15.9 ms for the seed path's
+// solve (p = 16,384, r·t = 4,884), against 569.5, 134.8 and 39.1 ms at the
+// f32 CUDA-core rate.  The split pass moves ~3.5 GB (~1 ms) at the chunk's
+// shape.
 //
 // What the design does:
 //   * split_kernel: one thread per 8 consecutive k of one row writes 16
@@ -73,16 +79,18 @@
 //     get no more than 12), hence 192 columns and no producer warps: 256
 //     threads, up to 255 registers each.
 //   * Scratch (bf16, allocated by the wrapper with torch.empty): planes ×
-//     rows and K padded to the tile.  At the chunk's shape 3 × 32,768 ×
-//     8,192 × 2 B = 1.61 GB for x·w and 3 × 16,896 × 8,192 × 2 B = 0.83 GB
-//     for z; at the solve's, 1.61 GB for Q and 3 × 4,992 × 16,384 × 2 B =
-//     0.49 GB for the scaled A.
+//     rows and K padded to the tile.  At the folds' shape 1.36 GB for x and
+//     1.40 GB for [X | Y] (the largest fold, 13,841 rows); at the chunk's
+//     3 × 32,768 × 8,192 × 2 B = 1.61 GB for x·w and 3 × 16,896 × 8,192 ×
+//     2 B = 0.83 GB for z; at the solve's, 1.61 GB for Q and 3 × 4,992 ×
+//     16,384 × 2 B = 0.49 GB for the scaled A.
 // Not done yet (later work): a persistent grid (the epilogue does not
 // overlap the next tile's loads), thread-block clusters multicasting a
 // shared panel, two part sets per warpgroup so it need not drain its own
 // products before the fold, skipping all-zero stages of a slot (only where
-// the x rows are finite), computing only half of a symmetric XᵀWX, and
-// moving xty_folds and xty onto this engine.
+// the x rows are finite), computing only half of a symmetric G_f or XᵀWX
+// (it would change where rounding falls on mirrored entries, and needs
+// square tiles), and moving xty onto this engine.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -430,6 +438,8 @@ cudaError_t product(const void* a, int na, const void* b, int nb,
     return launch_product<2, 1>(a, b, M, N, K, out, ld, nc, cstride, stream);
   if (na == 1 && nb == 3)
     return launch_product<1, 3>(a, b, M, N, K, out, ld, nc, cstride, stream);
+  if (na == 1 && nb == 1)
+    return launch_product<1, 1>(a, b, M, N, K, out, ld, nc, cstride, stream);
   return cudaErrorInvalidValue;
 }
 

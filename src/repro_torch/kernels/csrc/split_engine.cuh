@@ -8,8 +8,9 @@
 //      f32) is cut into `planes` bf16 terms and written into scratch in the
 //      K-major tile layout the product kernel copies as it is;
 //   2. product(): a bf16 GEMM over the kept pairs of term planes.
-// gram.cu (xty_folds_masked) and ridge_solve.cu (solve_lambda_grid) are
-// its callers; kernels/split_engine.py sizes the scratch.
+// gram.cu (xty_folds, xty_folds_masked) and ridge_solve.cu
+// (solve_lambda_grid) are its callers; kernels/split_engine.py sizes the
+// scratch.
 #pragma once
 
 #include <cuda_runtime.h>

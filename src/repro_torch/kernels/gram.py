@@ -1,12 +1,12 @@
 """Checked launchers of the CUDA cross-Gram kernel (``csrc/gram.cu``).
 
-Port of ``repro/kernels/gram.py``: ``xty_folds`` (per-fold ``X_fᵀY_f`` in
-one row pass), ``xty`` (``XᵀY``: the one-fold case of the same kernel, or,
-for an output too small to fill the card, that kernel over ``row_splits``
-row ranges plus an in-order sum of the partials) and
-``xty_folds_masked`` (per-slot ``(X·w_s)ᵀZ``, the streamed chunk update,
-on the split-bf16 tensor-core engine, whose scratch it allocates with
-``kernels.split_engine``).  Each wrapper takes CUDA tensors only, checks
+Port of ``repro/kernels/gram.py``: ``xty_folds`` (per-fold ``X_fᵀY_f``,
+each fold one product of the split-bf16 tensor-core engine),
+``xty_folds_masked`` (per-slot ``(X·w_s)ᵀZ``, the streamed chunk update, on
+the same engine; both allocate the engine's scratch with
+``kernels.split_engine``) and ``xty`` (``XᵀY`` on the CUDA-core row loop:
+one row range, or, for an output too small to fill the card, ``row_splits``
+row ranges plus an in-order sum of the partials).  Each wrapper takes CUDA tensors only, checks
 them, allocates the f32 output, launches on the current stream, raises on
 a launch error and counts the launch in ``LAUNCHES``.  The build happens
 at the first launch, so this module imports on a host without ``nvcc``;
@@ -97,16 +97,17 @@ def row_splits(n: int, p: int, q: int, sms: int = 132
 
 def _launch(x: torch.Tensor, y: torch.Tensor,
             bounds: list[tuple[int, int]], name: str) -> torch.Tensor:
-    """One launch of the fold kernel → (k, p, q) f32; ``name`` labels an
-    error only (the callers count their launches)."""
+    """One launch of the row loop (``xty``'s kernel) over ``bounds`` →
+    (k, p, q) f32; ``name`` labels an error only (the callers count their
+    launches)."""
     p, q, k = x.shape[1], y.shape[1], len(bounds)
     out = torch.empty((k, p, q), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     _check_grid(p)
     lib = _build.load()
-    fn = (lib.repro_xty_folds_f32 if x.dtype == torch.float32
-          else lib.repro_xty_folds_bf16)
+    fn = (lib.repro_xty_rows_f32 if x.dtype == torch.float32
+          else lib.repro_xty_rows_bf16)
     # Host memory: the C side copies it into the launch's parameters.
     flat = (ctypes.c_longlong * (2 * k))(*(v for b in bounds for v in b))
     with torch.cuda.device(x.device):
@@ -126,14 +127,40 @@ def _check_grid(p: int) -> None:
 
 def xty_folds(x: torch.Tensor, y: torch.Tensor,
               bounds: Sequence[tuple[int, int]]) -> torch.Tensor:
-    """Per-fold ``out[f] = X[lo:hi]ᵀ Y[lo:hi]`` in one launch.
+    """Per-fold ``out[f] = X[lo:hi]ᵀ Y[lo:hi]``, one counted launch.
 
     ``bounds`` are contiguous row ranges covering ``[0, n)`` (as
     ``foldstats.fold_bounds`` makes them).  x: (n, p), y: (n, q), both CUDA,
-    contiguous, float32 or bfloat16 alike → (k, p, q) float32.
+    contiguous, float32 or bfloat16 alike → (k, p, q) float32.  Each fold
+    runs on the split-bf16 tensor-core engine: the split passes write the
+    bf16 terms of x[lo:hi] and y[lo:hi] (``split_engine.folds_planes``)
+    into scratch sized for the largest fold and shared by all, then one
+    product sums the kept term pairs into ``out[f]``; an empty fold is an
+    exact zero slice.
     """
     _check_operands(x, y)
-    out = _launch(x, y, _check_bounds(bounds, x.shape[0]), "xty_folds")
+    b = _check_bounds(bounds, x.shape[0])
+    p, q, k = x.shape[1], y.shape[1], len(b)
+    out = torch.empty((k, p, q), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    rows = max(hi - lo for lo, hi in b)
+    na, nb = split_engine.folds_planes(x.dtype)
+    scratch_a = split_engine.scratch(p, rows, na, split_engine.TILE_M,
+                                     x.device)
+    scratch_b = split_engine.scratch(q, rows, nb, split_engine.TILE_N,
+                                     x.device)
+    lib = _build.load()
+    fn = (lib.repro_xty_folds_f32 if x.dtype == torch.float32
+          else lib.repro_xty_folds_bf16)
+    flat = (ctypes.c_longlong * (2 * k))(*(v for bd in b for v in bd))
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), y.data_ptr(), flat, scratch_a.data_ptr(),
+                scratch_b.data_ptr(), out.data_ptr(), p, q, k,
+                torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream)
+    _build.check_rc(lib, rc, "xty_folds", f"x {tuple(x.shape)}, y "
+                    f"{tuple(y.shape)}, k={k}, {x.dtype}")
     LAUNCHES["xty_folds"] += 1
     return out
 

@@ -125,6 +125,16 @@ def xty_folds_masked_split(x: torch.Tensor, z: torch.Tensor,
     return split_product(a, z.float(), na, nb).reshape(s, p, z.shape[1])
 
 
+def xty_folds_split(x: torch.Tensor, y: torch.Tensor,
+                    bounds: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """``xty_folds`` by the engine's arithmetic: per fold, ``x[lo:hi]`` and
+    ``y[lo:hi]`` split by ``split_engine.folds_planes`` → (k, p, q) f32; an
+    empty fold is zero."""
+    na, nb = split_engine.folds_planes(x.dtype)
+    return torch.stack([split_product(x[lo:hi].float(), y[lo:hi].float(),
+                                      na, nb) for lo, hi in bounds])
+
+
 def solve_lambda_grid_split(q: torch.Tensor, evals: torch.Tensor,
                             a: torch.Tensor,
                             lambdas: torch.Tensor) -> torch.Tensor:
@@ -175,6 +185,29 @@ def ssd_intra(cb: torch.Tensor, la: torch.Tensor,
                                  device=cb.device))[None, :, :, None]
     decay = torch.exp(torch.where(mask, diff, -torch.inf))
     return torch.einsum("nqkh,nkhp->nqhp", decay * cb[:, :, :, None], x)
+
+
+def ssd_intra_split(cb: torch.Tensor, la: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """``ssd_intra`` by the tensor-core kernel's arithmetic: the masked
+    ``L[n,q,k,h] = exp(la_q − la_k)·cb[q,k]`` in f32, as ``ssd_intra``
+    forms it, and ``x`` are cut into bf16 terms by ``bf16_split3`` (three
+    of ``L``; three of an f32 ``x``, one of a bf16 ``x``, which is exact),
+    and the kept pairs' products (``split_engine.pairs``), each exact in
+    f32, are summed in f32 → (N, Q, H, P).  For the tests and
+    ``chip_smoke.py``; no main path calls it."""
+    nx = 1 if x.dtype == torch.bfloat16 else 3
+    cbf, la, xf = cb.float(), la.float(), x.float()
+    q = cbf.shape[1]
+    diff = la[:, :, None, :] - la[:, None, :, :]        # (N,Q,Q,H)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=cb.device))[None, :, :, None]
+    lmat = torch.exp(torch.where(mask, diff, -torch.inf)) * cbf[..., None]
+    tl, tx = bf16_split3(lmat), bf16_split3(xf)[:nx]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i, j in split_engine.pairs(3, nx):
+        out += torch.einsum("nqkh,nkhp->nqhp", tl[i].float(), tx[j].float())
+    return out
 
 
 def solve_lambda_grid(q: torch.Tensor, evals: torch.Tensor, a: torch.Tensor,

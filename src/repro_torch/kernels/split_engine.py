@@ -4,9 +4,10 @@ The engine computes ``out = A'ᵀ·B'`` in f32 accuracy on the bf16 tensor
 cores: every f32 operand value is cut into bf16 terms
 (``ref.bf16_split3``), a split pass writes the term planes into scratch,
 and a bf16 GEMM sums the kept products of term pairs.  The wrappers of
-``xty_folds_masked`` (``kernels/gram.py``) and ``solve_lambda_grid``
-(``kernels/ridge_solve.py``) size and allocate that scratch here; the
-plain model of the arithmetic is ``ref.split_product``.
+``xty_folds`` and ``xty_folds_masked`` (``kernels/gram.py``) and
+``solve_lambda_grid`` (``kernels/ridge_solve.py``) size and allocate that
+scratch here; the plain model of the arithmetic is
+``ref.split_product``.
 """
 from __future__ import annotations
 
@@ -34,6 +35,12 @@ def masked_planes(dtype: torch.dtype) -> tuple[int, int]:
     """Terms of (x·w, z) in ``xty_folds_masked``: three each for f32; for
     bf16 the f32 product x·w of two bf16 values fits two, z is one."""
     return (2, 1) if dtype == torch.bfloat16 else (3, 3)
+
+
+def folds_planes(dtype: torch.dtype) -> tuple[int, int]:
+    """Terms of (x, y) in ``xty_folds``: three each for f32; a bf16 value
+    is one exact term, and one product of two bf16 terms is exact."""
+    return (1, 1) if dtype == torch.bfloat16 else (3, 3)
 
 
 def solve_planes(dtype: torch.dtype) -> tuple[int, int]:

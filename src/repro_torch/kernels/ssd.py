@@ -2,7 +2,10 @@
 
 Port of ``repro/kernels/ssd.py``: ``ssd_intra`` computes the Mamba2
 within-chunk term ``y[n,q,h,p] = Σ_{k≤q} exp(la[n,q,h] − la[n,k,h]) ·
-cb[n,q,k] · x[n,k,h,p]`` (n_groups = 1 layout) in one launch.  The wrapper
+cb[n,q,k] · x[n,k,h,p]`` (n_groups = 1 layout) in one launch, on the
+tensor cores: the f32 decay-score matrix L and x are cut into exact bf16
+terms and the kept term products summed in f32 (``ref.ssd_intra_split``
+is the plain model of that arithmetic).  The wrapper
 takes CUDA tensors only, checks them, allocates the f32 output, launches
 on the current stream, raises on a launch error and counts the launch in
 ``LAUNCHES``.  ``kernels.ops`` routes CPU tensors to ``kernels.ref``.
@@ -12,6 +15,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+
+# The longest chunk the kernel takes (csrc/ssd.cu: a 64 × Q block of cb
+# and eight heads' la in a block's shared memory).  The models' is 256.
+MAX_CHUNK = 704
 
 # Launches since the last ``reset_launches()``.
 LAUNCHES: dict[str, int] = {"ssd_intra": 0}
@@ -49,17 +56,23 @@ def ssd_intra(cb: torch.Tensor, la: torch.Tensor,
     if cb.shape != (n, q, q) or la.shape != (n, q, h):
         raise ValueError(f"want cb (N, Q, Q), la (N, Q, H), x (N, Q, H, P): "
                          f"{desc}")
-    if h > 65535 or -(-q // 64) * -(-p // 64) > 65535 or n >= 2**31:
+    if q > MAX_CHUNK:
+        raise ValueError(f"chunk length Q={q} > {MAX_CHUNK}: the kernel "
+                         f"stages a 64 × Q block of cb in shared memory: "
+                         f"{desc}")
+    if n * -(-h // 8) * -(-q // 64) >= 2**31:
         raise ValueError(f"shape out of the kernel's grid range: {desc}")
     out = torch.empty((n, q, h, p), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    # Set by the kernel when x holds a NaN or ±Inf (csrc/ssd.cu).
+    flag = torch.empty(1, dtype=torch.int32, device=x.device)
     lib = _build.load()
     fn = (lib.repro_ssd_intra_f32 if x.dtype == torch.float32
           else lib.repro_ssd_intra_bf16)
     with torch.cuda.device(x.device):
         rc = fn(cb.data_ptr(), la.data_ptr(), x.data_ptr(), out.data_ptr(),
-                n, q, h, p, torch.cuda.current_device(),
+                flag.data_ptr(), n, q, h, p, torch.cuda.current_device(),
                 torch.cuda.current_stream().cuda_stream)
     _build.check_rc(lib, rc, "ssd_intra", f"{desc}")
     LAUNCHES["ssd_intra"] += 1

@@ -6,6 +6,8 @@ Pallas kernels in interpret mode and against ``repro.kernels.ref`` on the
 same numpy inputs, over the reference tests' own cases.  The CUDA kernels
 are held against the plain versions on a card (``cuda``-marked tests).
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -205,6 +207,77 @@ def test_plain_ssd_intra_matches_pallas_kernel_and_ref(n, q, h, p):
                                **F32)
 
 
+def _tol(dtype):
+    # As tests/test_kernels.py::_tol: blocked f32 reduction order differs;
+    # bf16 operands are rounded first.
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,q,h,p", [(2, 16, 8, 16), (3, 32, 16, 32),
+                                     (1, 64, 8, 64), (8, 8, 16, 32)])
+def test_ssd_split_model_matches_pallas_kernel_and_ref(n, q, h, p, dtype):
+    """The tensor-core kernel's arithmetic (L and x cut into exact bf16
+    terms, the kept term products summed in f32) against the Pallas
+    kernel in interpret mode and the reference's oracle."""
+    (jcb, jla, jx), (tcb, tla, tx) = _both(
+        _ssd_inputs(n, q, h, p, seed=n + q), dtype)
+    got = tref.ssd_intra_split(tcb, tla, tx)
+    assert got.shape == (n, q, h, p) and got.dtype == torch.float32
+    jk = jssd.ssd_intra(jcb, jla, jx, head_block=8, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(jk), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(jref.ssd_intra(jcb, jla, jx)),
+                               **_tol(dtype))
+    # The same bf16-rounded operands through the port's plain version: the
+    # split's only departure is the three dropped term products.
+    np.testing.assert_allclose(_np(got), _np(tref.ssd_intra(tcb, tla, tx)),
+                               **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_split_model_follows_the_nonfinite_rule(dtype):
+    """NaN where the plain version is NaN, non-finite where it is ±Inf: the
+    masked 0·cb and 0·x of the reference propagate through the split."""
+    cb, la, x = (torch.from_numpy(a) for a in _ssd_inputs(2, 32, 3, 8,
+                                                           seed=4))
+    x[0, 20, 1, 5] = float("inf")       # NaN for q < 20 (0·Inf) too
+    x[1, 3, 2, 0] = float("nan")
+    cb[0, 4, 30] = float("nan")         # above the diagonal: row 4 NaN
+    cb[1, 9, 2] = float("inf")          # below it
+    dt = getattr(torch, dtype)
+    cb, la, x = cb.to(dt), la.to(dt), x.to(dt)
+    want = tref.ssd_intra(cb, la, x)
+    got = tref.ssd_intra_split(cb, la, x)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    assert torch.isnan(got[torch.isnan(want)]).all()
+    assert not torch.isfinite(got[torch.isinf(want)]).any()
+    fin = torch.isfinite(want)
+    assert torch.isfinite(got[fin]).all()
+    torch.testing.assert_close(got[fin], want[fin], **F32)
+
+
+def test_ssd_chunk_limit_is_the_kernels_shared_memory():
+    """The wrapper's Q limit (``ssd.MAX_CHUNK``) is the longest chunk whose
+    block layout (csrc/ssd.cu: layout) fits a block's shared memory, for
+    f32 x (three term planes, the larger layout)."""
+    import re
+    src = (Path(tssd.__file__).parent / "csrc" / "ssd.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    smem = int(re.search(r"constexpr int kSmemMax = (\d+) \* 1024;",
+                         src).group(1)) * 1024
+
+    def layout(q):
+        w = -(-q // const["kRows"]) * const["kRows"]
+        ring = 2 * 3 * const["kStage"] * const["kCols"] * 2
+        return ring + 4 * const["kRows"] * w + 4 * const["kHeads"] * w \
+            + 4 * const["kRows"]
+
+    assert layout(tssd.MAX_CHUNK) <= smem < layout(tssd.MAX_CHUNK + 1)
+    assert layout(256) <= smem // 2 - 1024     # two blocks an SM at Q = 256
+
+
 def test_plain_ssd_intra_is_the_model_chain():
     """The plain kernel equals the port's own einsum chain for G = 1."""
     from repro_torch.models.ssm import _y_intra_plain
@@ -310,6 +383,35 @@ def test_cuda_flash_matches_plain_version(dtype, kd):
             got.float(), tref.mha_flash(q, k, v, n_kv, **kw).float(), **tol)
     assert tattn.LAUNCHES == {"flash_attention": 9}
     _check_operand_errors_on_card()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_intra_matches_split_model_and_nonfinite_rule(dtype):
+    """The tensor-core kernel against the model of its own arithmetic
+    (only the f32 summation order differs), repeated launches bitwise
+    equal, and NaN or ±Inf inputs past a tile's diagonal."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    for n, q, h, p in [(2, 256, 9, 64), (1, 300, 3, 130), (3, 100, 5, 70)]:
+        cb, la, x = (torch.from_numpy(a).cuda().to(dt)
+                     for a in _ssd_inputs(n, q, h, p, seed=h))
+        got = tssd.ssd_intra(cb, la, x)
+        torch.testing.assert_close(got, tref.ssd_intra_split(cb, la, x),
+                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, tssd.ssd_intra(cb, la, x))
+    cb, la, x = (torch.from_numpy(a).cuda() for a in _ssd_inputs(2, 256, 9,
+                                                                 64, seed=2))
+    x[0, 200, 3, 5] = float("inf")
+    x[1, 70, 8, 63] = float("nan")
+    cb[0, 30, 150] = float("nan")
+    cb[1, 100, 50] = float("inf")
+    cb, la, x = cb.to(dt), la.to(dt), x.to(dt)
+    got, want = tssd.ssd_intra(cb, la, x), tref.ssd_intra(cb, la, x)
+    assert torch.isnan(got[torch.isnan(want)]).all()
+    assert not torch.isfinite(got[torch.isinf(want)]).any()
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], **F32)
 
 
 @pytest.mark.cuda

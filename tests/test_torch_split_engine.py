@@ -1,10 +1,11 @@
 """The split-bf16 engine's arithmetic against the JAX package and f64.
 
-``xty_folds_masked`` and ``solve_lambda_grid`` run on the card as one
-engine: f32 operand values (after their scale) cut into bf16 terms by
+``xty_folds``, ``xty_folds_masked`` and ``solve_lambda_grid`` run on the
+card as one engine: f32 operand values (after their scale) cut into bf16 terms by
 ``ref.bf16_split3``, the kept term products (``split_engine.pairs``)
 accumulated in f32.  On the CPU its plain model (``ref.split_product``,
-``ref.xty_folds_masked_split``, ``ref.solve_lambda_grid_split``) is held
+``ref.xty_folds_split``, ``ref.xty_folds_masked_split``,
+``ref.solve_lambda_grid_split``) is held
 against the Pallas kernels in interpret mode within
 ``tests/test_kernels.py::_tol`` and against an f64 product within the
 split's error bound; the split of ±Inf, NaN, ±0 and tiny values follows
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import foldstats as jfoldstats
 from repro.kernels import gram as jgram
 from repro.kernels import ridge_solve as jsolve
 from repro_torch.kernels import gram as tgram
@@ -128,6 +130,41 @@ def test_solve_split_model_matches_pallas_interpret(p, t, r, dtype, layout):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(dtype))
 
 
+# Ragged folds of fold_bounds, and hand-made ones with an empty fold and a
+# one-row fold.
+FOLD_CASES = [(203, 24, 17, None), (70, 33, 129, None),
+              (150, 33, 17, ((0, 7), (7, 7), (7, 100), (100, 101),
+                             (101, 150)))]
+
+
+def _fold_inputs(n, p, q, seed, scales=False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, p))
+    if scales:
+        # Values over many binades, so that every term plane is used.
+        x = x * 2.0 ** rng.integers(-20, 20, (n, p))
+    y = rng.standard_normal((n, q))
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,p,q,bounds", FOLD_CASES)
+def test_folds_split_model_matches_pallas_interpret(n, p, q, bounds, dtype):
+    bounds = bounds or tuple(jfoldstats.fold_bounds(n, 5))
+    x, y = _fold_inputs(n, p, q, n + p + q)
+    tdt = getattr(torch, dtype)
+    got = tref.xty_folds_split(torch.from_numpy(x).to(tdt),
+                               torch.from_numpy(y).to(tdt), bounds)
+    assert got.dtype == torch.float32 and got.shape == (len(bounds), p, q)
+    want = jgram.xty_folds(jnp.asarray(x, dtype), jnp.asarray(y, dtype),
+                           tuple(bounds), block_n=128, block_p=128,
+                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(dtype))
+    for f, (lo, hi) in enumerate(bounds):
+        if lo == hi:
+            assert not got[f].any()
+
+
 # ---------------------------------------------------------------------------
 # The model against f64, within the split's error bound
 # ---------------------------------------------------------------------------
@@ -178,6 +215,19 @@ def test_kernel_models_within_f64_bound(dtype):
         b64 = (ta.float() * scale[r][:, None]).double().numpy()
         err = np.abs(got[r] - q64 @ b64)
         assert (err <= _bound(q64.T, b64, 200)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folds_split_model_within_f64_bound(dtype):
+    tdt = getattr(torch, dtype)
+    x, y = _fold_inputs(600, 20, 30, 9, scales=True)
+    tx, ty = torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt)
+    bounds = [(0, 150), (150, 150), (150, 600)]
+    got = tref.xty_folds_split(tx, ty, bounds).double().numpy()
+    x64, y64 = tx.double().numpy(), ty.double().numpy()
+    for f, (lo, hi) in enumerate(bounds):
+        err = np.abs(got[f] - x64[lo:hi].T @ y64[lo:hi])
+        assert (err <= _bound(x64[lo:hi], y64[lo:hi], hi - lo)).all()
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +288,23 @@ def test_split_models_follow_the_nonfinite_rule(dtype):
     assert_nonfinite_rule(tref.solve_lambda_grid_split(*args), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folds_split_model_follows_the_nonfinite_rule(dtype):
+    tdt = getattr(torch, dtype)
+    x, y = _fold_inputs(40, 6, 9, 14)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    tx[4, 2] = float("nan")
+    ty[30, 5] = float("inf")
+    tx, ty = tx.to(tdt), ty.to(tdt)
+    bounds = [(0, 10), (10, 25), (25, 40)]
+    want = tref.xty_folds(tx, ty, bounds)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    got = tref.xty_folds_split(tx, ty, bounds)
+    assert_nonfinite_rule(got, want)
+    # The fold between them stays finite.
+    assert torch.isfinite(got[1]).all()
+
+
 def test_masked_split_model_keeps_an_all_zero_slot_exactly_zero():
     x, z, w = _masked_inputs(50, 7, 11, 3, "real", 13)
     w[:, 1] = 0.0
@@ -255,6 +322,9 @@ def test_kept_pairs_and_plane_counts():
     assert all(i + j <= 2 for i, j in split_engine.KEPT_PAIRS)
     assert split_engine.pairs(2, 1) == [(0, 0), (1, 0)]
     assert split_engine.pairs(1, 3) == [(0, 0), (0, 1), (0, 2)]
+    assert split_engine.folds_planes(torch.float32) == (3, 3)
+    assert split_engine.folds_planes(torch.bfloat16) == (1, 1)
+    assert split_engine.pairs(1, 1) == [(0, 0)]
     assert split_engine.masked_planes(torch.float32) == (3, 3)
     assert split_engine.masked_planes(torch.bfloat16) == (2, 1)
     assert split_engine.solve_planes(torch.float32) == (3, 3)
@@ -268,6 +338,10 @@ def test_kept_pairs_and_plane_counts():
     # The seed path's solve: Q, and the scaled A with r·t = 4,884 columns.
     (16_384, 16_384, 3, 128, 3 * 16_384 * 16_384),
     (11 * 444, 16_384, 3, 192, 3 * 4_992 * 16_384),
+    # xty_folds at the parcels fit: x and [X | Y] of the largest of 5
+    # folds of 69,202 rows (13,841).
+    (16_384, 13_841, 3, 128, 3 * 16_384 * 13_856),
+    (16_828, 13_841, 3, 192, 3 * 16_896 * 13_856),
     # Ragged: rows and K padded to the tile and the 32-k stage.
     (1, 1, 1, 128, 128 * 32),
     (257, 33, 2, 192, 2 * 384 * 64),
@@ -313,3 +387,29 @@ def test_cuda_split_kernels_match_the_split_model(dtype):
     torch.testing.assert_close(tsolve.solve_lambda_grid(q, evals, a, lams),
                                want, rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_xty_folds_matches_split_model(dtype):
+    """xty_folds on the engine against the model of its own arithmetic and
+    the plain version: ragged folds, an empty fold (exact zeros), repeated
+    launches bitwise equal, one counted launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    g = torch.Generator("cuda").manual_seed(6)
+    x = torch.randn(1037, 255, device="cuda", generator=g).to(dt)
+    y = torch.randn(1037, 391, device="cuda", generator=g).to(dt)
+    bounds = [(0, 300), (300, 300), (300, 301), (301, 1037)]
+    tgram.reset_launches()
+    got = tgram.xty_folds(x, y, bounds)
+    want = tref.xty_folds_split(x, y, bounds)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    plain = tref.xty_folds(x, y, bounds)
+    torch.testing.assert_close(got, plain, rtol=1e-4,
+                               atol=1e-4 * plain.abs().max().item())
+    assert not got[1].any()
+    assert torch.equal(got, tgram.xty_folds(x, y, bounds))
+    assert tgram.LAUNCHES["xty_folds"] == 2

@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
-(exit code 1) on a failed check:
+nvcc into ``build/kernels/``, then runs thirteen phases, each of which
+raises (exit code 1) on a failed check:
 
 1. Environment: versions, TF32 switches (all off), card name and power
    limit, kernel build time (one nvcc per source, in parallel; beside it,
@@ -88,6 +88,30 @@ nvcc into ``build/kernels/``, then runs eleven phases, each of which raises
     Gram + eigh, solve, predictions + scores and refit), then dual at the
     ``whole_brain_mor`` size (61 ``xty`` launches; equal to the plain seed
     path).
+12. The whole-brain subject at full width (``whole_brain_bmor``: n=10,000,
+    p=16,384, t=264,805; the full subject's n=69,202 is cut to the
+    10,000 the repo's Table 1 rows give the B-MOR whole-brain experiment):
+    a ``RunStore`` under ``build/`` written by ``materialize_synthetic``
+    (10.6 GB of Y and 0.66 GB of X), ``BrainEncoder(device_memory_budget=
+    64 GiB, target_block=16,384).fit(store=)``, which must plan
+    ``colblocked`` itself (17 blocks, the last of 2,661 targets), make 36
+    ``xty_folds_masked`` launches (2 chunks × (the X-only pass + 17
+    blocks)) with one signature per update and one pass over X (its rows
+    cached); its first column-block launch is held against the plain
+    version on its operands, the first and the ragged last block's
+    weights against the unblocked statistics solve of their columns (rtol
+    1e-4, atol 2e-4).  Then ``save`` (17 shards, 17.4 GB), reopened with
+    ``EncoderBundle.open``: two shards, the last among them, bitwise equal
+    to the weights.  Prints the fit's time split (stats pass, eighs,
+    scoring, Â and solve, the rest; save), peak device memory, staging.
+    Free disk (~31 GB: the store, then the Â scratch or the bundle) and
+    host RAM (~40 GB) are checked first; everything is deleted at the end.
+13. The tier's parity on the card at n=4,000, p=2,048, t=6,728, 1,024-row
+    chunks, t_block=2,048: kernel tier = plain tier, global mode = the
+    unblocked ``chunked`` tier, per-block mode = ``ridge_cv_from_stats``
+    per block, the spill path (X re-streamed per block) bitwise equal to
+    the cached run, and ``BundleWriter`` shards (f32, bf16) bitwise equal
+    to the collected weights (bf16 rounded to nearest even).
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -95,6 +119,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -147,6 +172,16 @@ SEED_CV_TOL, SEED_W_TOL = 1e-3, 2e-3
 # The whole-brain evaluation: the paper's 264,805 targets on the held-out
 # 10% of the rows that rows_before_split(69,202) generates.
 WHOLE_BRAIN_T = 264_805
+# Phase 12: the whole-brain column-blocked fit.  The block width is pinned:
+# a block's working set on the card (C, the Gram's scoring terms, six
+# eigenbases and up to three (r, p, t_block) scoring temporaries) is ~55 GB
+# at 16,384, and the reference's pick_target_block would take ~88,000 at
+# this budget because it prices only k·p·(p + t_block).
+WB_TARGET_BLOCK = 16_384
+WB_BUDGET = 64 << 30
+# Phase 13: the tier's parity on the card at a small p (the paper's roi
+# target count; chunks misaligned with the 5 folds; a ragged last block).
+WB_SMALL = dict(n=4_000, p=2_048, t=6_728, chunk_rows=1_024, t_block=2_048)
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -583,6 +618,26 @@ def phase_kernels_full(card: str, reps: int) -> dict:
           f"{int(W.sum())} of {s}·{m} slot-rows, {selected:.4e} of the "
           f"{2.0 * s * m * p * q:.4e} FLOPs computed (a stage-skipping "
           f"kernel's share) [{card}]")
+    del X, Z, W
+    free()
+    # Whole-brain: one column-block chunk update of phase 12 — rows 0..8,191
+    # of its n=10,000 meet all five folds; z is the block's t_block columns.
+    w = complexity.PAPER_WORKLOADS["whole_brain_bmor"]
+    m, q = CHUNK_ROWS, WB_TARGET_BLOCK
+    folds = [(a, min(b, m)) for a, b in fold_bounds(w.n, k) if a < m]
+    W = torch.zeros(m, len(folds), device="cuda")
+    for s_, (a, b) in enumerate(folds):
+        W[a:b, s_] = 1.0
+    X = torch.randn(m, w.p, device="cuda", generator=g)
+    Z = torch.randn(m, q, device="cuda", generator=g)
+    s = W.shape[1]
+    rec["xty_folds_masked_wholebrain"] = _measure(
+        f"xty_folds_masked (whole-brain column block) m={m} p={w.p} q={q} "
+        f"s={s}", gram.xty_folds_masked, ref.xty_folds_masked, lib_masked,
+        (X, Z, W), 2.0 * s * m * w.p * q,
+        4.0 * (m * w.p + m * q + m * s + s * w.p * q), card, reps,
+        products=len(split_engine.pairs(*split_engine.masked_planes(
+            X.dtype))))
     del X, Z, W
     free()
     return rec
@@ -1749,6 +1804,394 @@ def phase_seed_dual(card: str) -> None:
     free()
 
 
+# --------------------------------------------------------------------------
+# Phases 12 and 13
+# --------------------------------------------------------------------------
+def _mem_available() -> int:
+    """Host memory available to new allocations, bytes (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+@contextlib.contextmanager
+def _patched(*patches):
+    """Set ``(obj, name, value)`` attributes for the block, then restore."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def _timed(fn, timers: dict, key: str):
+    """``fn`` with its synchronised wall time added to ``timers[key]``."""
+    import torch
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        timers[key] += time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def phase_wholebrain(card: str) -> int:
+    import resource
+    import numpy as np
+    import torch
+    from repro_torch.core import complexity, foldstats, ridge
+    from repro_torch.data import fmri
+    from repro_torch.data.store import RunStore
+    from repro_torch.encoding import BrainEncoder, EncoderConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving_encoders import EncoderBundle
+    from repro_torch.wholebrain import column_blocks, solver
+    from repro_torch.wholebrain import stats as wstats
+
+    w = complexity.PAPER_WORKLOADS["whole_brain_bmor"]
+    n, p, t = w.n, w.p, w.t
+    cfg = EncoderConfig(device_memory_budget=WB_BUDGET,
+                        target_block=WB_TARGET_BLOCK, chunk_rows=CHUNK_ROWS)
+    k = cfg.n_folds
+    blocks = column_blocks(t, WB_TARGET_BLOCK)
+    n_chunks = -(-n // CHUNK_ROWS)
+    want = n_chunks * (1 + len(blocks))
+    # Resources, reckoned first: the store, then the fit's Â scratch or the
+    # bundle (the scratch is deleted when the fit ends); on the host the
+    # collected W and the copy save() makes of it.
+    store_b, wt_b = n * (p + t) * 4, p * t * 4
+    disk_need = store_b + wt_b + (2 << 30)
+    ram_need = 2 * wt_b + n * p * 4 + (4 << 30)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    disk_free, ram_free = shutil.disk_usage(build).free, _mem_available()
+    print(f"[wholebrain] n={n} p={p} t={t}: store {store_b / 1e9:.2f} GB, "
+          f"Â scratch {wt_b / 1e9:.2f} GB, bundle {wt_b / 1e9:.2f} GB on "
+          f"disk (need {disk_need / 1e9:.1f} GB, {disk_free / 1e9:.1f} GB "
+          f"free under {build}); host RAM need {ram_need / 1e9:.1f} GB, "
+          f"{ram_free / 1e9:.1f} GB available")
+    check(disk_free > disk_need,
+          f"phase 12 needs {disk_need / 1e9:.1f} GB of disk under {build} "
+          f"(store, then the Â scratch or the bundle), which has "
+          f"{disk_free / 1e9:.1f} GB free: free disk space and rerun")
+    check(ram_free > ram_need,
+          f"phase 12 needs {ram_need / 1e9:.1f} GB of host RAM (W collected "
+          f"once, then copied by save), {ram_free / 1e9:.1f} GB available: "
+          f"free memory and rerun")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_wb_", dir=build))
+    (root / "tmp").mkdir()
+    saved_tempdir = tempfile.tempdir
+    try:
+        # The fit's scratch goes to the default temporary directory: keep
+        # it on the disk checked above.
+        tempfile.tempdir = str(root / "tmp")
+        t0 = time.perf_counter()
+        RunStore.create(str(root / "store"), n_folds=k).materialize_synthetic(
+            fmri.SubjectSpec(n=n, p=p, t=t), seed=18, rows_per_run=RUN_ROWS,
+            device="cuda")
+        store = RunStore.open(str(root / "store"))
+        write_s = time.perf_counter() - t0
+        print(f"[wholebrain] store: {len(store.runs)} runs of {RUN_ROWS} "
+              f"rows written by materialize_synthetic in {write_s:.2f} s")
+        free()
+
+        timers = dict.fromkeys(("stats", "check", "eighs", "scoring",
+                                "solve", "fit_wholebrain"), 0.0)
+        first = {}
+        inside = []
+        update = foldstats.FoldStatsAccumulator.update
+        colblock_call = wstats._ColumnBlockUpdate.__call__
+        masked = ops.xty_folds_masked
+
+        def timed_update(*args, **kwargs):
+            c0 = timers["check"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            update(*args, **kwargs)
+            torch.cuda.synchronize()
+            timers["stats"] += (time.perf_counter() - t1
+                                - (timers["check"] - c0))
+
+        def in_colblock(*args, **kwargs):
+            inside.append(True)
+            try:
+                return colblock_call(*args, **kwargs)
+            finally:
+                inside.pop()
+
+        def keep_first(x, z, onehot):
+            out = masked(x, z, onehot)
+            if inside and not first:
+                # The first column-block launch against the plain version
+                # on its own operands, at once (its timing excluded).
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                first["err"], first["scale"] = _compare(
+                    f"phase 12's first column-block xty_folds_masked x="
+                    f"{tuple(x.shape)} z={tuple(z.shape)} "
+                    f"s={onehot.shape[1]}", out,
+                    ref.xty_folds_masked(x, z, onehot), "float32")
+                free()
+                timers["check"] += time.perf_counter() - t1
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        with _patched(
+                (foldstats.FoldStatsAccumulator, "update", timed_update),
+                (wstats._ColumnBlockUpdate, "__call__", in_colblock),
+                (ops, "xty_folds_masked", keep_first),
+                (torch.linalg, "eigh",
+                 _timed(torch.linalg.eigh, timers, "eighs")),
+                (foldstats, "eigenbasis_x_terms",
+                 _timed(foldstats.eigenbasis_x_terms, timers, "scoring")),
+                (foldstats, "validation_scores_from_terms",
+                 _timed(foldstats.validation_scores_from_terms, timers,
+                        "scoring")),
+                (solver, "_project", _timed(solver._project, timers,
+                                            "solve")),
+                (solver, "_solve_projected",
+                 _timed(solver._solve_projected, timers, "solve")),
+                (solver, "fit_wholebrain",
+                 _timed(solver.fit_wholebrain, timers, "fit_wholebrain"))):
+            t0 = time.perf_counter()
+            enc = BrainEncoder(cfg, device="cuda").fit(store=store)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        rep, ss, d = enc.report_, enc.stream_stats_, enc.report_.decision
+        check_s = timers.pop("check")
+        fit_s -= check_s
+        solver_s = timers.pop("fit_wholebrain") - check_s
+        # The estimator's own work around fit_wholebrain: moving W (p, t)
+        # to the card for report_.
+        to_card = fit_s - solver_s
+        other = solver_s - sum(timers.values())
+        print(f"[wholebrain] fit(store=) with device_memory_budget="
+              f"{WB_BUDGET / 2**30:g} GiB, target_block={WB_TARGET_BLOCK}: "
+              f"decision {d.solver}/{d.method} t_block {d.target_block} "
+              f"kernel tier {d.use_pallas}; {ss['n_blocks']} blocks, t_pad "
+              f"{ss['t_pad']}; launches {launches}; signatures "
+              f"{ss['gram_compile_delta']}/{ss['colblock_compile_delta']}; "
+              f"row_passes_x {ss['row_passes_x']} (X cache "
+              f"{ss['x_cache_bytes'] / 1e9:.3f} GB); λ={rep.best_lambda[0]:g}")
+        print(f"[wholebrain] fit {fit_s:.2f} s: stats pass "
+              f"{timers['stats']:.2f} s, eighs {timers['eighs']:.2f} s, "
+              f"scoring {timers['scoring']:.2f} s, Â and solve "
+              f"{timers['solve']:.2f} s, W to the card {to_card:.2f} s, "
+              f"the rest (read stall, Â scratch and W host copies and I/O) "
+              f"{other:.2f} s; {ss['bytes_staged'] / 1e9:.2f}"
+              f" GB staged, read_stall {ss['read_stall_s']:.3f} s, "
+              f"compute_stall {ss['compute_stall_s']:.3f} s; peak device "
+              f"memory {peak / 2**30:.2f} GiB [{card}]")
+        check(d.method == "colblocked" and d.use_pallas
+              and ss["t_pad"] == WB_TARGET_BLOCK, f"decision {d}, {ss}")
+        check(ss["gram_compile_delta"] == 1 and ss["colblock_compile_delta"]
+              == 1 and ss["row_passes_x"] == 1, f"stream stats {ss}")
+        check(launches == {**dict.fromkeys(launches, 0),
+                           "xty_folds_masked": want},
+              f"launches {launches}, want {want} xty_folds_masked")
+        check("err" in first, "no column-block launch was captured")
+        print(f"[wholebrain] first column-block launch against "
+              f"ref.xty_folds_masked on its operands: max abs err "
+              f"{first['err']:.3e} (tol {REL_TOL:g}·max|plain|, max|plain| "
+              f"{first['scale']:.4e}) [{card}]")
+        check(float(rep.best_lambda[0]) in rep.lambdas, "λ not in the grid")
+        check(tuple(rep.weights.shape) == (p, t), "W shape")
+        check(bool(torch.isfinite(rep.weights).all()), "W non-finite")
+        check(bool(np.isfinite(rep.cv_scores).all()), "CV curve non-finite")
+
+        t0 = time.perf_counter()
+        enc.save(str(root / "bundle"), weight_shards=len(blocks))
+        save_s = time.perf_counter() - t0
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        print(f"[wholebrain] save: {len(blocks)} shards, "
+              f"{wt_b / 1e9:.2f} GB in {save_s:.2f} s; fit + save "
+              f"{fit_s + save_s:.2f} s; peak host RSS of the process (mapped "
+              f"scratch pages included) "
+              f"{rss / 1e9:.2f} GB [{card}]")
+        bundle = EncoderBundle.open(str(root / "bundle"))
+        shards = bundle.weight_shard_bounds()
+        for i in (0, len(shards) - 1):
+            lo, hi = shards[i]
+            check(np.array_equal(bundle.load_weight_shard(i, mmap=True),
+                                 rep.weights[:, lo:hi].cpu().numpy()),
+                  f"reopened shard {i} [{lo}, {hi}) differs from W")
+        print(f"[wholebrain] reopened shards 0 and {len(shards) - 1} "
+              f"bitwise equal to the weights")
+        # The first and the ragged last block against the unblocked
+        # statistics solve of their columns at the fit's λ.
+        lam = torch.tensor(rep.best_lambda[0], dtype=torch.float32,
+                           device="cuda")
+        factors = None
+        for lo, hi in (blocks[0], blocks[-1]):
+            stream = store.iter_chunks(CHUNK_ROWS, col_range=(lo, hi),
+                                       prefetch=True, pin_memory=True)
+            st = foldstats.compute_chunked(
+                stream, n, k, chunk_rows=CHUNK_ROWS, use_pallas=True,
+                device="cuda")
+            if factors is None:
+                G = st.G_total
+                G.diagonal().add_(cfg.jitter)
+                evals, Q = torch.linalg.eigh(G)
+                factors = ridge.RidgeFactors(basis=Q, evals=evals,
+                                             primal=True)
+                del G
+            W_un = ridge.solve(factors, st.C_total, lam).cpu().numpy()
+            W_bl = rep.weights[:, lo:hi].cpu().numpy()
+            del st
+            free()
+            dw = float(np.abs(W_bl - W_un).max())
+            print(f"[wholebrain] block [{lo}, {hi}) against the unblocked "
+                  f"solve of its columns: max|ΔW| {dw:.3e} (rtol 1e-4, "
+                  f"atol 2e-4, max|W| {np.abs(W_un).max():.4e}) [{card}]")
+            np.testing.assert_allclose(W_bl, W_un, rtol=1e-4, atol=2e-4)
+        del enc, rep, factors
+        free()
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+    return launches["xty_folds_masked"]
+
+
+def phase_wholebrain_parity(card: str) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core import foldstats, ridge
+    from repro_torch.data import fmri
+    from repro_torch.data.store import RunStore
+    from repro_torch.encoding import BrainEncoder, EncoderConfig
+    from repro_torch.encoding.dispatch import resolve
+    from repro_torch.encoding.estimator import EncodingReport
+    from repro_torch.serving_encoders import EncoderBundle
+    from repro_torch.wholebrain import BundleWriter, fit_wholebrain
+
+    n, p, t = WB_SMALL["n"], WB_SMALL["p"], WB_SMALL["t"]
+    rows, tb = WB_SMALL["chunk_rows"], WB_SMALL["t_block"]
+    tol = dict(rtol=1e-4, atol=2e-4)
+    # Under the resident set n·(p + t) but too small for even 2-wide
+    # column blocks → the chunked tier; under 4·n·p → X is not cached.
+    chunked_budget = n * (p + t) * 4 * 3 // 4
+    spill_budget = 2 * n * p * 4
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_wb13_", dir=build))
+    try:
+        t0 = time.perf_counter()
+        RunStore.create(str(root / "store"), n_folds=5).materialize_synthetic(
+            fmri.SubjectSpec(n=n, p=p, t=t), seed=19, rows_per_run=RUN_ROWS,
+            device="cuda")
+        store = RunStore.open(str(root / "store"))
+        cfg = EncoderConfig(chunk_rows=rows)
+        kern = fit_wholebrain(store, cfg, t_block=tb, device="cuda",
+                              scratch_dir=str(root))
+        check(kern.block_bounds[-1] == (3 * tb, t)
+              and kern.telemetry["use_pallas"], f"{kern.block_bounds}")
+        # (a) the kernel tier against the plain tier.
+        plain = fit_wholebrain(
+            store, EncoderConfig(chunk_rows=rows, use_pallas=False),
+            t_block=tb, device="cuda", scratch_dir=str(root))
+        check(np.array_equal(kern.best_lambda, plain.best_lambda),
+              f"λ kernel {kern.best_lambda} vs plain {plain.best_lambda}")
+        np.testing.assert_allclose(kern.weights, plain.weights, **tol)
+        np.testing.assert_allclose(kern.cv_scores, plain.cv_scores, **tol)
+        # (b) global mode against the unblocked chunked tier.
+        chunked = BrainEncoder(EncoderConfig(
+            chunk_rows=rows, device_memory_budget=chunked_budget),
+            device="cuda").fit(store=store)
+        check(chunked.report_.decision.method == "chunked",
+              f"decision {chunked.report_.decision}")
+        check(float(chunked.report_.best_lambda[0]) == kern.best_lambda[0],
+              f"λ chunked {chunked.report_.best_lambda} vs blocked "
+              f"{kern.best_lambda}")
+        np.testing.assert_allclose(kern.weights,
+                                   chunked.weights_.cpu().numpy(), **tol)
+        dw_c = float(np.abs(kern.weights
+                            - chunked.weights_.cpu().numpy()).max())
+        del chunked
+        # (c) per-block mode against ridge_cv_from_stats on each block's
+        # restricted statistics.
+        per = fit_wholebrain(store, cfg, t_block=tb, lambda_mode="per_block",
+                             device="cuda")
+        stats = foldstats.compute_chunked(
+            store.iter_chunks(rows), n, 5, chunk_rows=rows, use_pallas=True,
+            device="cuda")
+        for b, (lo, hi) in enumerate(per.block_bounds):
+            sub = foldstats.FoldStats(
+                G=stats.G, C=stats.C[:, :, lo:hi], xsum=stats.xsum,
+                ysum=stats.ysum[:, lo:hi], ysq=stats.ysq[:, lo:hi],
+                count=stats.count)
+            rr = ridge.ridge_cv_from_stats(
+                sub, cfg.ridge_cv_config("eigh", device="cuda"))
+            check(per.best_lambda[b] == float(rr.best_lambda),
+                  f"block {b}: λ {per.best_lambda[b]} vs "
+                  f"{float(rr.best_lambda)}")
+            np.testing.assert_allclose(per.weights[:, lo:hi],
+                                       rr.weights.cpu().numpy(), **tol)
+            np.testing.assert_allclose(per.cv_scores[b],
+                                       rr.cv_scores.cpu().numpy(), **tol)
+        del stats
+        # (d) the spill path: a budget too small for the X cache.
+        spill = fit_wholebrain(
+            store, EncoderConfig(chunk_rows=rows,
+                                 device_memory_budget=spill_budget),
+            t_block=tb, device="cuda", scratch_dir=str(root))
+        check(spill.telemetry["row_passes_x"] == len(spill.block_bounds)
+              == 4 and kern.telemetry["row_passes_x"] == 1,
+              f"row passes {spill.telemetry['row_passes_x']}, cached "
+              f"{kern.telemetry['row_passes_x']}")
+        check(np.array_equal(spill.best_lambda, kern.best_lambda)
+              and np.array_equal(spill.weights, kern.weights),
+              "spill path λ/W not bitwise equal to the cached run")
+        # (e) shards streamed to a BundleWriter during the fit.
+        decision = resolve(EncoderConfig(chunk_rows=rows, target_block=tb,
+                                         device_memory_budget=spill_budget),
+                           n, p, t, device="cuda")
+        for dtype in ("float32", "bfloat16"):
+            path = str(root / f"bundle_{dtype}")
+            with BundleWriter(path, p=p, t=t, weight_dtype=dtype) as wr:
+                res = fit_wholebrain(store, cfg, t_block=tb, writer=wr,
+                                     collect=False, device="cuda")
+                wr.commit(config=cfg, report=EncodingReport(
+                    weights=None, best_lambda=res.best_lambda,
+                    cv_scores=res.cv_scores, lambdas=cfg.lambdas,
+                    decision=decision), lambda_by_target=res.lambda_by_target)
+            b = EncoderBundle.open(path)
+            want = torch.from_numpy(kern.weights).to(getattr(torch, dtype))
+            if dtype == "bfloat16":     # as stored: the u16 bit patterns
+                want = torch.from_numpy(
+                    want.view(torch.int16).numpy().view(np.uint16))
+            for i, (lo, hi) in enumerate(b.weight_shard_bounds()):
+                check(np.array_equal(b.load_weight_shard(i),
+                                     want[:, lo:hi].numpy()),
+                      f"{dtype} shard {i} differs from the collected W")
+            check(np.array_equal(
+                b.load_arrays(["lambda_by_target"])["lambda_by_target"],
+                kern.lambda_by_target), f"{dtype} lambda_by_target")
+        print(f"[wholebrain-parity] n={n} p={p} t={t} chunk_rows={rows} "
+              f"t_block={tb} ({len(kern.block_bounds)} blocks, tail "
+              f"{t - 3 * tb}): kernel tier = plain tier (λ "
+              f"{kern.best_lambda[0]:g}, max|ΔW| "
+              f"{np.abs(kern.weights - plain.weights).max():.3e}), = "
+              f"chunked tier (max|ΔW| {dw_c:.3e}); per-block λ "
+              f"{per.best_lambda.tolist()} = ridge_cv_from_stats per block; "
+              f"spill path ({spill.telemetry['row_passes_x']} X passes) "
+              f"bitwise; BundleWriter f32/bf16 shards bitwise; "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free()
+
+
 def main() -> int:
     import torch
 
@@ -1778,6 +2221,8 @@ def main() -> int:
     del heldout
     launches["solve_lambda_grid"] = phase_seed_primal(card)
     phase_seed_dual(card)
+    launches["xty_folds_masked"] += phase_wholebrain(card)
+    phase_wholebrain_parity(card)
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("split_engine.cu",
                            "src/repro/kernels/gram.py:158"),

@@ -247,6 +247,12 @@ class FoldStatsAccumulator:
         self._fixed_rows = (None if chunk_rows is None
                             else min(chunk_rows, n_total))
 
+    def _init_stats(self, p: int, t: int) -> FoldStats:
+        """Zero statistics for ``p`` features and ``t`` targets on the
+        accumulator's device — the seam a subclass that accumulates another
+        statistic (the whole-brain column blocks) overrides with ``_apply``."""
+        return _zero_stats(len(self.bounds), p, t, self.device)
+
     def _max_slots(self) -> int:
         """Folds a ``_fixed_rows`` window can intersect: it fully contains
         every fold but its two ends, each of size ≥ ``min_fold``."""
@@ -294,8 +300,7 @@ class FoldStatsAccumulator:
         X = as_tensor(X_chunk, self.device)
         Y = as_tensor(Y_chunk, self.device)
         if self._stats is None:
-            self._stats = _zero_stats(len(self.bounds), X.shape[1],
-                                      Y.shape[1], self.device)
+            self._stats = self._init_stats(X.shape[1], Y.shape[1])
         if self._fixed_rows is None:
             self._fixed_rows = m
         fixed = self._fixed_rows
@@ -480,6 +485,50 @@ class ColumnMoments:
         return torch.sqrt(self.m2 / self.count) + eps
 
 
+def eigenbasis_x_terms(xsum_f: torch.Tensor, G_f: torch.Tensor,
+                       m: torch.Tensor, Q: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The X-only half of split ``f``'s validation scores in the eigenbasis
+    ``Q``: ``u = xsum_fᵀQ`` and the centred ``Ĝ_c = QᵀG_fQ − uuᵀ/m``.
+
+    They depend on no target, so a caller that scores many target blocks
+    against one ``Q`` (the whole-brain tier) computes them once per fold.
+    """
+    u = torch.matmul(xsum_f, Q)                                     # (p,)
+    Ghat_c = torch.matmul(Q.T, torch.matmul(G_f, Q))
+    Ghat_c -= u[:, None] * u[None, :] / m
+    return u, Ghat_c
+
+
+def validation_scores_from_terms(
+        C_f: torch.Tensor, ysum_f: torch.Tensor, ysq_f: torch.Tensor,
+        m: torch.Tensor, Q: torch.Tensor, evals: torch.Tensor,
+        C_tr: torch.Tensor, lambdas: torch.Tensor, scoring: str,
+        u: torch.Tensor, Ghat_c: torch.Tensor) -> torch.Tensor:
+    """``validation_scores_per_target`` from the fold's target statistics
+    (``C_f``, ``ysum_f``, ``ysq_f``, row count ``m``) and its X-only terms
+    (``eigenbasis_x_terms``), shape ``(r, t)``."""
+    # Coefficients in the eigenbasis, per λ: Z_r = (Λ+λ_r)⁻¹ QᵀC_tr.
+    A = torch.matmul(Q.T, C_tr)                                     # (p, t)
+    Z = A[None] / (evals[None, :, None] + lambdas[:, None, None])   # (r, p, t)
+    mu = (ysum_f / m)[None]                                         # (1, t) ȳ
+    m2 = ysq_f[None]                                                # Σ(y−ȳ)²
+    # The fold's validation statistics rotated into the eigenbasis, centred.
+    Chat_c = torch.matmul(Q.T, C_f) - u[:, None] * mu
+    s_hat = torch.einsum("p,rpt->rt", u, Z)                         # Σŷ
+    c_xy = (Chat_c[None] * Z).sum(1)                                # Σ(y−ȳ)ŷ
+    # Σ(ŷ−ŷ̄)² = diag(Z_rᵀ Ĝ_c Z_r): one (r, p, t) product, never an
+    # (r, p, p) one.
+    c_p2 = (Z * torch.matmul(Ghat_c, Z)).sum(1)
+    if scoring == "r2":
+        # Σ(y−ŷ)² = Σ(y−ȳ)² − 2Σ(y−ȳ)(ŷ−ŷ̄) + Σ(ŷ−ŷ̄)² + m(ŷ̄−ȳ)².
+        mean_term = m * (s_hat / m - mu) ** 2
+        ss_res = m2 - 2.0 * c_xy + c_p2 + mean_term
+        return 1.0 - ss_res / (m2 + 1e-12)
+    den = torch.sqrt(torch.clamp(m2 * c_p2, min=0.0)) + 1e-12
+    return c_xy / den
+
+
 def validation_scores_per_target(
         stats: FoldStats, f: int, Q: torch.Tensor, evals: torch.Tensor,
         C_tr: torch.Tensor, lambdas: torch.Tensor, scoring: str
@@ -496,29 +545,11 @@ def validation_scores_per_target(
     reference's docstring for the precision argument); ``"r2"`` and ``"r"``
     match ``ridge._score`` in exact arithmetic.
     """
-    # Coefficients in the eigenbasis, per λ: Z_r = (Λ+λ_r)⁻¹ QᵀC_tr.
-    A = torch.matmul(Q.T, C_tr)                                     # (p, t)
-    Z = A[None] / (evals[None, :, None] + lambdas[:, None, None])   # (r, p, t)
     m = stats.count[f]
-    mu = (stats.ysum[f] / m)[None]                                  # (1, t) ȳ
-    m2 = stats.ysq[f][None]                                         # Σ(y−ȳ)²
-    # The fold's validation statistics rotated into the eigenbasis, centred.
-    u = torch.matmul(stats.xsum[f], Q)                              # (p,)
-    Chat_c = torch.matmul(Q.T, stats.C[f]) - u[:, None] * mu
-    Ghat_c = torch.matmul(Q.T, torch.matmul(stats.G[f], Q))
-    Ghat_c -= u[:, None] * u[None, :] / m
-    s_hat = torch.einsum("p,rpt->rt", u, Z)                         # Σŷ
-    c_xy = (Chat_c[None] * Z).sum(1)                                # Σ(y−ȳ)ŷ
-    # Σ(ŷ−ŷ̄)² = diag(Z_rᵀ Ĝ_c Z_r): one (r, p, t) product, never an
-    # (r, p, p) one.
-    c_p2 = (Z * torch.matmul(Ghat_c, Z)).sum(1)
-    if scoring == "r2":
-        # Σ(y−ŷ)² = Σ(y−ȳ)² − 2Σ(y−ȳ)(ŷ−ŷ̄) + Σ(ŷ−ŷ̄)² + m(ŷ̄−ȳ)².
-        mean_term = m * (s_hat / m - mu) ** 2
-        ss_res = m2 - 2.0 * c_xy + c_p2 + mean_term
-        return 1.0 - ss_res / (m2 + 1e-12)
-    den = torch.sqrt(torch.clamp(m2 * c_p2, min=0.0)) + 1e-12
-    return c_xy / den
+    u, Ghat_c = eigenbasis_x_terms(stats.xsum[f], stats.G[f], m, Q)
+    return validation_scores_from_terms(
+        stats.C[f], stats.ysum[f], stats.ysq[f], m, Q, evals, C_tr, lambdas,
+        scoring, u, Ghat_c)
 
 
 def validation_scores_from_stats(

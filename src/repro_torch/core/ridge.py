@@ -397,4 +397,4 @@ def ridge_cv_reference(X: torch.Tensor, Y: torch.Tensor,
 
 
 def predict(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(X.float(), W)
+    return torch.matmul(X.float(), W.float())

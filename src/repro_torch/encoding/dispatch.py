@@ -2,12 +2,14 @@
 
 Port of ``repro/encoding/dispatch.py`` for the plans the port runs: the
 single-shard ``ridge`` solver, primal eigh when ``n >= p`` and dual
-otherwise, and the row-streamed ``chunked`` tier when the resident set
-exceeds ``device_memory_budget``.  Every other plan the reference can
-choose — MOR, B-MOR, dual B-MOR, banded, and the ``colblocked`` tier —
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.  The
-decision fields and the plan's rationale match the reference's for the
-same inputs; the kernel-tier clause names the CUDA kernels.
+otherwise, the row-streamed ``chunked`` tier when the resident set exceeds
+``device_memory_budget``, and the target-blocked ``colblocked`` tier when
+even the ``(k, p, t)`` fold statistics break the budget (or
+``target_block`` is set).  Every other plan the reference can choose —
+MOR, B-MOR, dual B-MOR, banded — raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.  The decision fields and the plan's rationale
+match the reference's for the same inputs; the kernel-tier clause names
+the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ _NOT_PORTED = {
     "bmor": "queue 1, item 9 (multi-device)",
     "bmor_dual": "queue 1, item 9 (multi-device)",
     "banded": "queue 1, item 9 (banded ridge)",
-    "colblocked": "queue 1, item 7 (whole-brain column blocks)",
 }
 
 
@@ -35,7 +36,7 @@ class DispatchDecision:
     """The resolved execution plan, with the model cost that justified it."""
 
     solver: str              # "ridge" (the only solver the port runs yet)
-    method: str              # "eigh" | "dual" | "chunked" (row streaming)
+    method: str              # "eigh" | "dual" | "chunked" | "colblocked"
     data_shards: int
     target_shards: int
     predicted_cost: float    # §3 fp-mult count on the critical path
@@ -88,6 +89,44 @@ def chunked_stats_bytes(n_folds: int, p: int, t: int,
                         itemsize: int = 4) -> int:
     """Footprint of the accumulated fold statistics ``k·p·(p + t)``."""
     return n_folds * p * (p + t) * itemsize
+
+
+def pick_target_block(budget: int, n_folds: int, p: int, t: int,
+                      itemsize: int = 4) -> int:
+    """Largest column-block width whose blocked statistics
+    ``k·p·(p + t_block)`` fit in HALF the budget (the other half covers
+    staging buffers, the hoisted eigenbases, and solve temporaries),
+    clamped to ``[2, t]`` — the reference's rule, unchanged (it does not
+    price the scoring's ``(r, p, t_block)`` temporaries)."""
+    per_col = n_folds * p * itemsize
+    spare = budget // 2 - n_folds * p * p * itemsize
+    return max(2, min(t, spare // max(per_col, 1)))
+
+
+def _colblocked_decision(cfg: EncoderConfig, w: RidgeWorkload, resident: int,
+                         t_axis_bytes: int, t: int) -> DispatchDecision:
+    """Pin the target-axis streaming tier (whole-brain regime)."""
+    t_block = cfg.target_block or pick_target_block(
+        cfg.device_memory_budget, cfg.n_folds, w.p, t)
+    n_blocks = -(-t // t_block)
+    # Same FLOPs as the chunked tier — the Gram is accumulated once and the
+    # C products total n·p·t across blocks; the per-block cost is the
+    # re-streamed I/O, which the FLOP model does not price.
+    cost = (complexity.t_w(w) +
+            complexity.t_m(w) + complexity.t_w_folded(w))
+    return DispatchDecision(
+        solver="ridge", method="colblocked", data_shards=1, target_shards=1,
+        predicted_cost=cost, target_block=t_block,
+        rationale=f"the target-axis working set (k·p·(p+t) fold statistics "
+                  f"+ (p, t) solve arrays) = {t_axis_bytes / 2**20:.1f} MB "
+                  f"breaks device_memory_budget = "
+                  f"{cfg.device_memory_budget / 2**20:.1f} MB regardless of "
+                  f"row streaming → column-blocked target streaming: "
+                  f"{n_blocks} block(s) of t_block={t_block} targets, "
+                  f"shared Gram pass + per-block (k, p, t_block) "
+                  f"statistics, eigendecompositions mutualised across "
+                  f"blocks (resident set O(p² + p·t_block), independent "
+                  f"of t={t})")
 
 
 def _kernel_tier(cfg: EncoderConfig, device: torch.device
@@ -154,10 +193,10 @@ def _resolve_plan(cfg: EncoderConfig, n: int, p: int, t: int,
                     f"method/bands ({cfg.method!r}/{cfg.bands}) cannot "
                     f"stream — the streaming paths are primal/eigh only")
             if colblocked:
-                raise _not_ported("colblocked")
+                return _colblocked_decision(cfg, w, resident, t_axis_bytes, t)
             return _chunked_decision(cfg, w, resident, device_count)
         if streamable and colblocked:
-            raise _not_ported("colblocked")
+            return _colblocked_decision(cfg, w, resident, t_axis_bytes, t)
 
     if solver == "auto":
         if cfg.bands is not None:

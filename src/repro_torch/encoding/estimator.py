@@ -5,7 +5,10 @@ resolves the plan through ``encoding.dispatch`` and runs
 ``core.ridge.ridge_cv``; ``fit(store=)`` and ``fit_chunks`` stream the rows
 of a ``RunStore`` (or any ordered chunk source) through
 ``foldstats.FoldStatsAccumulator`` and solve from the statistics alone
-(``ridge.ridge_cv_from_stats``); ``predict``/``score``/``evaluate`` follow.
+(``ridge.ridge_cv_from_stats``), or — when even the ``(k, p, t)``
+statistics break the budget — block the targets through
+``wholebrain.fit_wholebrain``; ``predict``/``score``/``evaluate`` follow, and
+``save``/``load`` persist the fitted encoder as an ``EncoderBundle``.
 The encoder runs on CUDA unless constructed with ``device="cpu"``.
 """
 from __future__ import annotations
@@ -136,7 +139,8 @@ class BrainEncoder:
         ``(n, p, t)``: when the resident-set estimate exceeds
         ``config.device_memory_budget`` the decision pins
         ``method="chunked"`` and the rows stream from the memory-mapped
-        shards — ``(n, p)`` is never materialised; otherwise the store is
+        shards — ``(n, p)`` is never materialised — or ``"colblocked"``
+        when the target axis must be blocked too; otherwise the store is
         loaded once and routed through the ordinary dispatch.
         """
         if store is not None:
@@ -145,6 +149,9 @@ class BrainEncoder:
             self._check_store_folds(store)
             n, p, t = store.shape
             decision = resolve(self.config, n, p, t, 1, device=self.device)
+            if decision.method == "colblocked":
+                return self._fit_store_colblocked(store, decision,
+                                                  chunk_rows)
             if decision.method == "chunked":
                 return self._fit_store_chunked(store, decision, chunk_rows)
             X, Y = store.load()
@@ -266,6 +273,35 @@ class BrainEncoder:
         self._record_stream_stats([stream], compiles0)
         return self._fit_from_stats(stats, n_total, decision)
 
+    def _fit_store_colblocked(self, store, decision: DispatchDecision,
+                              chunk_rows: int | None) -> "BrainEncoder":
+        """Target-axis streamed fit (``wholebrain.fit_wholebrain``): shared
+        Gram pass + per-block ``(k, p, t_block)`` statistics,
+        eigendecompositions reused across blocks, one λ for all targets.
+
+        This route assembles the host ``(p, t)`` weight matrix and moves it
+        to the encoder's device for ``report_``; at whole-brain scale a
+        caller that only needs the bundle drives ``fit_wholebrain``
+        directly with a ``BundleWriter``, so the shards stream to disk.
+        """
+        self._check_chunkable()
+        from repro_torch.wholebrain.solver import fit_wholebrain
+
+        res = fit_wholebrain(store, self.config,
+                             t_block=decision.target_block,
+                             chunk_rows=chunk_rows, device=self.device)
+        self.report_ = EncodingReport(
+            weights=torch.from_numpy(res.weights).to(self.device),
+            best_lambda=res.best_lambda,
+            cv_scores=res.cv_scores, lambdas=self.config.lambdas,
+            decision=decision)
+        self.stream_stats_ = {"schema": "repro.obs/v1", "kind": "stream",
+                              "prefetch": bool(self.config.prefetch),
+                              **res.telemetry,
+                              "compile_count":
+                                  res.telemetry["colblock_compile_delta"]}
+        return self
+
     def _record_stream_stats(self, streams, compiles_before: int) -> None:
         """Aggregate per-stream prefetch telemetry into ``stream_stats_``
         (the reference's flat snapshot schema)."""
@@ -291,6 +327,35 @@ class BrainEncoder:
         if self.report_ is None:
             raise RuntimeError("call fit() first")
         return self.report_.weights
+
+    def save(self, bundle_dir: str, *, overwrite: bool = False,
+             weight_shards: int | None = None,
+             weight_dtype: str | None = None,
+             provenance: dict | None = None) -> str:
+        """Persist the fitted encoder as an ``EncoderBundle`` directory.
+
+        The weight matrix (column-sharded ``.npy`` leaves, bf16 stored as
+        u16 bit patterns), the selected λ / CV provenance, the
+        ``EncoderConfig``, the dispatch decision and the fitted
+        ``Standardizer`` land on disk in the reference's format, atomically
+        (staged, then renamed).  ``BrainEncoder.load(d).predict(X)`` is
+        bitwise equal to ``self.predict(X)``.
+        """
+        from repro_torch.serving_encoders import bundle
+        return bundle.save_bundle(bundle_dir, self, overwrite=overwrite,
+                                  weight_shards=weight_shards,
+                                  weight_dtype=weight_dtype,
+                                  provenance=provenance)
+
+    @classmethod
+    def load(cls, bundle_dir: str, *, target_shards: int | None = None,
+             device: torch.device | str | None = None) -> "BrainEncoder":
+        """Rebuild a fitted encoder from a saved bundle (no refit), on
+        ``device`` (CUDA unless ``device="cpu"``).  ``target_shards`` > 1
+        (a sharded serving layout) is not ported yet."""
+        from repro_torch.serving_encoders import bundle
+        return bundle.EncoderBundle.open(bundle_dir).load_encoder(
+            target_shards=target_shards, device=device)
 
     def predict(self, X) -> torch.Tensor:
         return ridge.predict(as_tensor(X, self.device), self.weights_)

@@ -41,7 +41,11 @@ def test_port_has_every_slice_module():
               "repro_torch.configs", "repro_torch.configs.zamba2_2_7b",
               "repro_torch.configs.mamba2_130m",
               "repro_torch.data.synthetic", "repro_torch.kernels.ridge_solve",
-              "repro_torch.kernels.pearsonr"):
+              "repro_torch.kernels.pearsonr", "repro_torch.wholebrain",
+              "repro_torch.wholebrain.stats", "repro_torch.wholebrain.solver",
+              "repro_torch.wholebrain.artifact", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.io", "repro_torch.serving_encoders",
+              "repro_torch.serving_encoders.bundle"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):
@@ -131,13 +135,16 @@ def test_unported_plans_raise_not_implemented_naming_roadmap():
     d = dispatch.resolve(EncoderConfig(device_memory_budget=10**6),
                          100_000, 64, 8, 1, device="cpu")
     assert (d.solver, d.method, d.data_shards) == ("ridge", "chunked", 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dispatch.resolve(EncoderConfig(device_memory_budget=10**6,
+    # The whole-brain tier (item 7) is ported: an explicit target_block
+    # resolves to the colblocked plan over budget and under it.
+    d = dispatch.resolve(EncoderConfig(device_memory_budget=10**6,
                                        target_block=4), 100_000, 64, 8, 1,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dispatch.resolve(EncoderConfig(device_memory_budget=10**9,
+    assert (d.solver, d.method, d.target_block) == ("ridge", "colblocked", 4)
+    d = dispatch.resolve(EncoderConfig(device_memory_budget=10**9,
                                        target_block=4), 100, 8, 16, 1,
                          device="cpu")
+    assert (d.solver, d.method, d.target_block) == ("ridge", "colblocked", 4)
+    assert "4 block(s) of t_block=4" in d.rationale
     with pytest.raises(NotImplementedError, match="item 9"):
         EncoderConfig(bands=(2, 2)).banded_config()

@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs thirteen phases, each of which
-raises (exit code 1) on a failed check:
+nvcc into ``build/kernels/``, then runs sixteen phases, each of which
+raises (exit code 1) on a failed check (``--only 14,16`` runs the build
+and just the listed phases, 12 to 16, and prints no result lines):
 
 1. Environment: versions, TF32 switches (all off), card name and power
    limit, kernel build time (one nvcc per source, in parallel; beside it,
@@ -104,6 +105,10 @@ raises (exit code 1) on a failed check:
     ``EncoderBundle.open``: two shards, the last among them, bitwise equal
     to the weights.  Prints the fit's time split (stats pass, eighs,
     scoring, Â and solve, the rest; save), peak device memory, staging.
+    Then one 128-row wave through ``EncoderService.predict_columns`` over
+    columns 10,000–30,000 of the saved bundle, under a registry budget
+    that holds only the two weight shards they touch (2 shard loads, no
+    whole-bundle residency), held against ``X·W[:, window]``.
     Free disk (~31 GB: the store, then the Â scratch or the bundle) and
     host RAM (~40 GB) are checked first; everything is deleted at the end.
 13. The tier's parity on the card at n=4,000, p=2,048, t=6,728, 1,024-row
@@ -112,6 +117,30 @@ raises (exit code 1) on a failed check:
     per block, the spill path (X re-streamed per block) bitwise equal to
     the cached run, and ``BundleWriter`` shards (f32, bf16) bitwise equal
     to the collected weights (bf16 rounded to nearest even).
+14. The MOR baseline at the ``whole_brain_mor`` width (n=1,000,
+    p=16,384; t cut from 2,000 to 256): ``resolve`` gives plan ``mor``,
+    method ``dual``, one target shard; ``BrainEncoder(solver="mor").fit``
+    must launch ``xty`` t times the count of one target's fit, equal the
+    plain tier (rtol 1e-4, atol 2e-4), and ``mor_fit_taskwise`` must equal
+    it bitwise on 64 targets.  Prints per-target seconds, the mutualised
+    ``ridge_cv`` on the same targets and the measured MOR/mutualised
+    factor beside ``complexity.mor_overhead_factor``.
+15. Banded ridge on the ``parcels`` cell (n=69,202, p=16,384 as the
+    paper's 4 TR lags × 4,096 VGG16-FC2 features, t=444, 3 folds; 4 band
+    candidates instead of 16): dispatch picks ``banded``, W finite, the
+    winning band λ among the drawn candidates, no kernel launched; the
+    fit split into Grams, eighs and the rest; then equal band λ against
+    ``ridge.solve`` on the full Gram (rtol 1e-4, atol 2e-4).
+16. Serving: four parcels-width bundles (seeded W and standardizers,
+    29 MB of W each) written by the port, a 64-request mixed trace
+    (``make_mixed_trace``) replayed through ``FleetFrontend`` →
+    ``EncoderService(wave_buckets=(32, 128), score_slots=4)`` over a
+    registry whose budget holds two bundles: packed = ``reference_serve``
+    bitwise (predictions and r), a row's bits equal at every offset of
+    every bucket, ``compile_count`` = buckets flown, evictions > 0,
+    predictions within rtol 1e-4/atol 2e-4 of a float64 host product,
+    served r within 1e-4 of ``ops.pearson_r``; rows/s and wave times by
+    bucket with the Pearson row loop's share.
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -182,6 +211,25 @@ WB_BUDGET = 64 << 30
 # Phase 13: the tier's parity on the card at a small p (the paper's roi
 # target count; chunks misaligned with the 5 folds; a ragged last block).
 WB_SMALL = dict(n=4_000, p=2_048, t=6_728, chunk_rows=1_024, t_block=2_048)
+# Phase 12's column serve: one 128-row wave over a 20,000-column window
+# that spans two of the bundle's 17 weight shards.
+WB_WINDOW = (10_000, 30_000)
+# Phase 14: MOR pays one RidgeCV per target, so the whole_brain_mor cell's
+# 2,000 targets are cut to the first 256; the taskwise loop is held
+# bitwise against mor_fit on the first 64 of them.
+MOR_TARGETS, MOR_TASKWISE = 256, 64
+# Phase 15: banded ridge on the parcels cell, the paper's VGG16-FC2 at
+# 4 TR lags (bands of 4,096), 3 folds; 4 band candidates instead of the
+# default 16 (each candidate pays 3 + 0 eighs of 16,384², ~2.5 s each).
+BANDS = (4096,) * 4
+BANDED_CANDIDATES = 4
+# Phase 16: four parcels-width bundles served through the fleet tier.
+SERVE_BUCKETS = (32, 128)
+SERVE_MODELS, SERVE_REQUESTS, SERVE_SLOTS = 4, 64, 4
+# Served r (five f32 sums chained over a request's rows, finalised in f64)
+# against the pearson_r kernel on the same rows (its sums in another
+# order, finalised in f32): summation order and the f32 finalise alone.
+PEARSON_TOL = 1e-4
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -2055,12 +2103,73 @@ def phase_wholebrain(card: str) -> int:
                   f"solve of its columns: max|ΔW| {dw:.3e} (rtol 1e-4, "
                   f"atol 2e-4, max|W| {np.abs(W_un).max():.4e}) [{card}]")
             np.testing.assert_allclose(W_bl, W_un, rtol=1e-4, atol=2e-4)
-        del enc, rep, factors
+        del factors
         free()
+        _serve_columns(card, str(root / "bundle"), rep.weights)
+        del enc, rep
     finally:
         tempfile.tempdir = saved_tempdir
         shutil.rmtree(root, ignore_errors=True)
     return launches["xty_folds_masked"]
+
+
+def _serve_columns(card: str, path: str, W) -> None:
+    """Phase 12's whole-brain column serve: one 128-row wave through
+    ``EncoderService.predict_columns`` over ``WB_WINDOW`` of the saved
+    bundle, under a registry budget that holds the two touched weight
+    shards and nothing more — shard-level residency, never the 17 GB
+    bundle — held against ``X·W[:, window]`` on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.serving_encoders import (EncoderBundle,
+                                              EncoderRegistry,
+                                              EncoderService)
+    from repro_torch.serving_encoders.registry import (bundle_resident_bytes,
+                                                       shard_resident_bytes)
+
+    lo, hi = WB_WINDOW
+    rows = SERVE_BUCKETS[-1]
+    bundle = EncoderBundle.open(path)
+    p = bundle.shape[0]
+    bounds = bundle.weight_shard_bounds()
+    touched = bundle.shards_for_columns(lo, hi)
+    check(len(touched) == 2, f"window {WB_WINDOW} touches shards {touched}")
+    budget = sum(shard_resident_bytes(bundle, bounds[i][1] - bounds[i][0],
+                                      rows) for i in touched)
+    check(budget < bundle_resident_bytes(bundle, rows),
+          "the column-serve budget would hold the whole bundle")
+    reg = EncoderRegistry(device_memory_budget=budget, device="cuda")
+    reg.add("wholebrain", path)
+    svc = EncoderService(reg, wave_buckets=SERVE_BUCKETS)
+    g = torch.Generator("cuda").manual_seed(12)
+    Xq = torch.randn(rows, p, device="cuda", generator=g)
+    Xh = Xq.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = svc.predict_columns("wholebrain", Xh, (lo, hi))
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = svc.predict_columns("wholebrain", Xh, (lo, hi))
+    hit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = reg.stats()
+    check(st["shard_loads"] == 2 and st["loaded"] == 0
+          and st["shard_hits"] == 2, f"registry {st}")
+    check(np.array_equal(out, again), "a resident re-serve differs")
+    want = torch.matmul(Xq, W[:, lo:hi]).cpu().numpy()
+    err = float(np.abs(out - want).max())
+    print(f"[wholebrain-serve] predict_columns: {rows} rows × columns "
+          f"[{lo}, {hi}) over shards {touched} ({[bounds[i] for i in touched]})"
+          f" under a {budget / 2**30:.2f} GiB budget (whole bundle "
+          f"{bundle.weight_nbytes() / 2**30:.2f} GiB): first call "
+          f"{first_s * 1e3:.1f} ms (2 mmap'd shard loads), resident "
+          f"{hit_s * 1e3:.1f} ms; registry {st}; max|Δ| vs X·W[:, window] "
+          f"{err:.3e} (rtol 1e-4, atol 2e-4); peak device memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    np.testing.assert_allclose(out, want, rtol=1e-4, atol=2e-4)
+    del reg, svc
+    free()
 
 
 def phase_wholebrain_parity(card: str) -> None:
@@ -2192,15 +2301,392 @@ def phase_wholebrain_parity(card: str) -> None:
         free()
 
 
-def main() -> int:
+# --------------------------------------------------------------------------
+# Phase 14
+# --------------------------------------------------------------------------
+def phase_mor(card: str) -> int:
+    import numpy as np
+    import torch
+    from repro_torch.core import complexity, mor, ridge
+    from repro_torch.data import fmri
+    from repro_torch.encoding import BrainEncoder, EncoderConfig
+    from repro_torch.encoding.dispatch import resolve
+    from repro_torch.kernels import gram
+
+    w = complexity.PAPER_WORKLOADS["whole_brain_mor"]
+    n, p, t = w.n, w.p, MOR_TARGETS
+    d = resolve(EncoderConfig(solver="mor"), n, p, w.t, device="cuda")
+    check((d.solver, d.method, d.target_shards, d.use_pallas)
+          == ("mor", "dual", 1, True), f"MOR decision {d}")
+    g = torch.Generator("cuda").manual_seed(14)
+    X, Y, _ = fmri.generate(fmri.SubjectSpec(n=n, p=p, t=w.t), g,
+                            device="cuda")
+    Y = Y[:, :t].contiguous()
+    enc = BrainEncoder(solver="mor", device="cuda")
+    cfg = enc.config.ridge_cv_config("dual", device="cuda")
+    # The launches of one target's fit, counted on the card.
+    gram.reset_launches()
+    ridge.ridge_cv(X, Y[:, :1].contiguous(), cfg)
+    torch.cuda.synchronize()
+    per_target = gram.LAUNCHES["xty"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    enc.fit(X, Y)
+    torch.cuda.synchronize()
+    mor_s = time.perf_counter() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    W = enc.report_.weights
+    check(launches == {**dict.fromkeys(launches, 0),
+                       "xty": t * per_target},
+          f"MOR launches {launches}, want {t} × {per_target} xty")
+    check(tuple(W.shape) == (p, t) and bool(torch.isfinite(W).all()),
+          "MOR W shape or non-finite values")
+    t0 = time.perf_counter()
+    plain = BrainEncoder(solver="mor", use_pallas=False,
+                         device="cuda").fit(X, Y).report_.weights
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    dw = (W - plain).abs().max().item()
+    np.testing.assert_allclose(W.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-4, atol=2e-4)
+    t0 = time.perf_counter()
+    task = mor.mor_fit_taskwise(X, Y[:, :MOR_TASKWISE].contiguous(), cfg)
+    torch.cuda.synchronize()
+    task_s = time.perf_counter() - t0
+    check(torch.equal(task, W[:, :MOR_TASKWISE]),
+          "mor_fit_taskwise differs from mor_fit")
+    ridge.ridge_cv(X, Y, cfg)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ridge.ridge_cv(X, Y, cfg)
+    torch.cuda.synchronize()
+    mutual_s = time.perf_counter() - t0
+    model = complexity.mor_overhead_factor(
+        complexity.RidgeWorkload(n=n, p=p, t=t), 1)
+    print(f"[mor] whole_brain_mor n={n} p={p}, t cut from {w.t} to {t}: "
+          f"decision {d.solver}/{d.method} target_shards "
+          f"{d.target_shards}; BrainEncoder(solver='mor').fit {mor_s:.2f} s "
+          f"= {mor_s / t * 1e3:.1f} ms per target; launches {launches} "
+          f"({per_target} xty per target, counted on one target's fit); "
+          f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    print(f"[mor] plain tier (use_pallas=False) {plain_s:.2f} s, max|ΔW| "
+          f"{dw:.3e} (rtol 1e-4, atol 2e-4); mor_fit_taskwise on "
+          f"{MOR_TASKWISE} targets {task_s:.2f} s, bitwise equal to "
+          f"mor_fit; mutualised ridge_cv on the same {t} targets "
+          f"{mutual_s:.3f} s: MOR/mutualised {mor_s / mutual_s:.1f}× "
+          f"measured, complexity.mor_overhead_factor {model:.1f}× "
+          f"[{card}]")
+    del X, Y, enc, W, plain, task
+    free()
+    return launches["xty"]
+
+
+# --------------------------------------------------------------------------
+# Phase 15
+# --------------------------------------------------------------------------
+def phase_banded(card: str) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core import banded, complexity, ridge
+    from repro_torch.data import fmri
+    from repro_torch.encoding import BrainEncoder, EncoderConfig
+    from repro_torch.encoding.dispatch import resolve
+
+    w = complexity.PAPER_WORKLOADS["parcels"]
+    n, p, t = w.n, w.p, w.t
+    check(sum(BANDS) == p, f"bands {BANDS} do not sum to p={p}")
+    cfg = EncoderConfig(bands=BANDS, n_folds=3,
+                        n_band_candidates=BANDED_CANDIDATES)
+    d = resolve(cfg, n, p, t, device="cuda")
+    check((d.solver, d.method) == ("banded", "eigh"), f"banded decision {d}")
+    g = torch.Generator("cuda").manual_seed(15)
+    X, Y, _ = fmri.generate(fmri.SubjectSpec(n=n, p=p, t=t), g,
+                            device="cuda")
+    timers = dict.fromkeys(("grams", "eighs"), 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _patched((banded, "_gram", _timed(banded._gram, timers, "grams")),
+                  (torch.linalg, "eigh",
+                   _timed(torch.linalg.eigh, timers, "eighs"))):
+        t0 = time.perf_counter()
+        enc = BrainEncoder(cfg, device="cuda").fit(X, Y)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    rep = enc.report_
+    n_eigh = BANDED_CANDIDATES * cfg.n_folds + 1
+    cands = banded.draw_candidates(torch.Generator().manual_seed(cfg.seed),
+                                   cfg.banded_config()).numpy()
+    check(rep.decision.solver == "banded" and rep.solver_label
+          == "banded RidgeCV", f"report {rep.decision}")
+    check(not any(launches.values()), f"banded launched kernels {launches}")
+    check(tuple(rep.weights.shape) == (p, t)
+          and bool(torch.isfinite(rep.weights).all()), "banded W")
+    check(bool(np.isfinite(rep.cv_scores).all())
+          and rep.cv_scores.shape == (1, BANDED_CANDIDATES), "CV curve")
+    check(any(np.array_equal(rep.band_lambdas, c) for c in cands),
+          f"band λ {rep.band_lambdas} not among the drawn candidates")
+    rest = fit_s - timers["grams"] - timers["eighs"]
+    print(f"[banded] parcels n={n} p={p} = bands {BANDS} t={t}, "
+          f"{cfg.n_folds} folds, {BANDED_CANDIDATES} candidates (cut from "
+          f"16): decision {d.solver}/{d.method}; fit {fit_s:.2f} s = Grams "
+          f"{timers['grams']:.2f} s + {n_eigh} eighs {timers['eighs']:.2f} s "
+          f"+ the rest {rest:.2f} s; band λ {rep.band_lambdas.tolist()}, CV "
+          f"R² {rep.cv_scores[0].round(5).tolist()}; peak device memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    # Equal bands reduce to plain ridge (the reference's
+    # test_equal_bands_reduce_to_plain_ridge, at full size).
+    lam = float(rep.band_lambdas.max())
+    t0 = time.perf_counter()
+    W_b = banded.solve_banded(X, Y, torch.full((len(BANDS),), lam,
+                                               device="cuda"),
+                              BANDS, jitter=0.0)
+    f = ridge.factorize(X, ridge.RidgeCVConfig(method="eigh", jitter=0.0))
+    W_p = ridge.solve(f, ridge.gram_xty(X, Y), torch.tensor(lam,
+                                                            device="cuda"))
+    torch.cuda.synchronize()
+    eq_s = time.perf_counter() - t0
+    dw = (W_b - W_p).abs().max().item()
+    print(f"[banded] all four band λ = {lam:g}: solve_banded against "
+          f"ridge.solve on the full Gram, max|ΔW| {dw:.3e} (rtol 1e-4, atol "
+          f"2e-4, max|W| {W_p.abs().max().item():.4e}), {eq_s:.2f} s "
+          f"[{card}]")
+    np.testing.assert_allclose(W_b.cpu().numpy(), W_p.cpu().numpy(),
+                               rtol=1e-4, atol=2e-4)
+    del X, Y, enc, rep, W_b, W_p, f
+    free()
+
+
+# --------------------------------------------------------------------------
+# Phase 16
+# --------------------------------------------------------------------------
+def _serving_bundles(root: Path, p: int, t: int) -> list[str]:
+    """``SERVE_MODELS`` parcels-width bundles of seeded weights and
+    standardizers, written by the port's bundle code."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.encoding import BrainEncoder
+    from repro_torch.encoding.dispatch import resolve
+    from repro_torch.encoding.estimator import EncodingReport
+    from repro_torch.encoding.pipeline import Standardizer
+
+    g = torch.Generator("cuda").manual_seed(16)
+    paths = []
+    for i in range(SERVE_MODELS):
+        enc = BrainEncoder(device="cuda")
+        enc.report_ = EncodingReport(
+            weights=torch.randn(p, t, device="cuda", generator=g)
+            / math.sqrt(p),
+            best_lambda=np.array([enc.config.lambdas[i]]),
+            cv_scores=np.zeros((1, len(enc.config.lambdas))),
+            lambdas=enc.config.lambdas,
+            decision=resolve(enc.config, 69_202, p, t, device="cuda"))
+        enc.standardizer_ = Standardizer(
+            mu_x=0.1 * torch.randn(p, device="cuda", generator=g),
+            sd_x=0.5 + torch.rand(p, device="cuda", generator=g),
+            mu_y=0.1 * torch.randn(t, device="cuda", generator=g),
+            sd_y=0.5 + torch.rand(t, device="cuda", generator=g))
+        paths.append(enc.save(str(root / f"sub-{i + 1:02d}")))
+    return paths
+
+
+def phase_serving(card: str) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core import complexity
+    from repro_torch.kernels import ops
+    from repro_torch.serving_encoders import (EncoderBundle,
+                                              EncoderRegistry,
+                                              EncoderService, FleetFrontend,
+                                              reference_serve)
+    from repro_torch.serving_encoders import fleet, service, traffic
+    from repro_torch.serving_encoders.registry import bundle_resident_bytes
+
+    w = complexity.PAPER_WORKLOADS["parcels"]
+    p, t = w.p, w.t
+    big = SERVE_BUCKETS[-1]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=build))
+    try:
+        t0 = time.perf_counter()
+        paths = _serving_bundles(root, p, t)
+        write_s = time.perf_counter() - t0
+        names = [Path(q).name for q in paths]
+        one = bundle_resident_bytes(EncoderBundle.open(paths[0]), big, None,
+                                    SERVE_SLOTS)
+        budget = int(2.5 * one)                 # holds two, never three
+
+        def stack():
+            reg = EncoderRegistry(device_memory_budget=budget,
+                                  wave_rows=big, device="cuda")
+            for name, path in zip(names, paths):
+                reg.add(name, path)
+            return reg, EncoderService(reg, wave_buckets=SERVE_BUCKETS,
+                                       score_slots=SERVE_SLOTS)
+
+        spec = traffic.make_mixed_trace(16, n_models=SERVE_MODELS,
+                                        n_requests=SERVE_REQUESTS, p=p, t=t,
+                                        wave_rows=big)
+        reqs = traffic.replay_requests(spec, names)
+        n_rows = sum(q.features.shape[0] for q in reqs)
+        reg, svc = stack()
+        fe = FleetFrontend(svc, max_pending_rows=8 * big)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results, rejections = fleet.replay(fe, reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ref_reg, ref_svc = stack()
+        t0 = time.perf_counter()
+        alone = reference_serve(ref_svc, reqs)
+        alone_s = time.perf_counter() - t0
+        for i, (got, want) in enumerate(zip(results, alone)):
+            check(got is not None and got.error is None
+                  and want.error is None, f"request {i} failed")
+            check(np.array_equal(got.predictions, want.predictions),
+                  f"request {i}: packed predictions differ from alone")
+            check((got.pearson_r is None) == (want.pearson_r is None)
+                  and (got.pearson_r is None
+                       or np.array_equal(got.pearson_r, want.pearson_r)),
+                  f"request {i}: packed Pearson r differs from alone")
+        st = svc.stats.to_dict()
+        check(svc.compile_count == len(st["per_bucket"]),
+              f"compile_count {svc.compile_count}, buckets "
+              f"{list(st['per_bucket'])}")
+        check(reg.evictions > 0, f"no eviction under the budget: "
+              f"{reg.stats()}")
+        # Predictions against a float64 host product of the same bundles,
+        # served r against ops.pearson_r on the same rows.
+        host = {}
+        for name, path in zip(names, paths):
+            b = EncoderBundle.open(path)
+            a = b.load_arrays()
+            host[name] = (b.load_weight_shard(0).astype(np.float64),
+                          *(a[k].astype(np.float64) for k in
+                            ("mu_x", "sd_x", "mu_y", "sd_y")))
+        dp = dr = 0.0
+        for q, got in zip(reqs, results):
+            W64, mx, sx, my, sy = host[q.model]
+            want = ((q.features - mx) / sx) @ W64 * sy + my
+            np.testing.assert_allclose(got.predictions, want, rtol=1e-4,
+                                       atol=2e-4)
+            dp = max(dp, float(np.abs(got.predictions - want).max()))
+            if q.targets is not None:
+                r = ops.pearson_r(torch.from_numpy(q.targets).cuda(),
+                                  torch.from_numpy(got.predictions).cuda())
+                r = r.cpu().numpy()
+                np.testing.assert_allclose(got.pearson_r, r, rtol=0,
+                                           atol=PEARSON_TOL)
+                dr = max(dr, float(np.abs(got.pearson_r - r).max()))
+        print(f"[serving] {SERVE_MODELS} bundles p={p} t={t} "
+              f"({EncoderBundle.open(paths[0]).weight_nbytes() / 1e6:.1f} MB "
+              f"of W each) written in {write_s:.2f} s; trace "
+              f"{spec.digest()[:12]}: {len(reqs)} requests, {n_rows} rows, "
+              f"{sum(q.targets is not None for q in reqs)} scored; "
+              f"FleetFrontend → EncoderService(wave_buckets={SERVE_BUCKETS}, "
+              f"score_slots={SERVE_SLOTS}) {serve_s:.3f} s = "
+              f"{n_rows / serve_s:,.0f} rows/s ({len(rejections)} "
+              f"admission rejections), reference_serve {alone_s:.3f} s; "
+              f"waves {st['per_bucket']}; registry {reg.stats()} under "
+              f"{budget / 1e6:.1f} MB; peak device memory "
+              f"{peak / 2**30:.2f} GiB [{card}]")
+        print(f"[serving] packed = alone bitwise (predictions and r, "
+              f"{len(reqs)} requests); compile_count {svc.compile_count}; "
+              f"max|Δ| vs float64 host product {dp:.3e} (rtol 1e-4, atol "
+              f"2e-4); max|Δr| vs ops.pearson_r {dr:.3e} (atol "
+              f"{PEARSON_TOL:g})")
+        # A row's bits at every bucket of the ladder and every offset.
+        e = reg.get(names[0], wave_rows=big, score_slots=SERVE_SLOTS)
+        args = (e.weights, e.mu_x, e.sd_x, e.mu_y, e.sd_y)
+        x = torch.from_numpy(reqs[0].features[:1]).cuda()
+        lone = service.predict_rows(x, *args)[0]
+        g = torch.Generator("cuda").manual_seed(17)
+        for rows in SERVE_BUCKETS:
+            wave = torch.randn(rows, p, device="cuda", generator=g)
+            for off in range(rows):
+                wv = wave.clone()
+                wv[off] = x[0]
+                check(torch.equal(service.predict_rows(wv, *args)[off],
+                                  lone),
+                      f"row bits differ at bucket {rows}, offset {off}")
+        print(f"[serving] one row's prediction bits equal at every offset "
+              f"of every bucket {SERVE_BUCKETS} "
+              f"({sum(SERVE_BUCKETS)} placements)")
+        # Wave times by bucket: the unscored program, the mixed program
+        # with every slot scored, and its sequential Pearson chain alone.
+        for rows in SERVE_BUCKETS:
+            X = torch.randn(rows, p, device="cuda", generator=g)
+            Yt = torch.randn(rows, t, device="cuda", generator=g)
+            oh = torch.zeros(rows, SERVE_SLOTS, device="cuda")
+            oh[torch.arange(rows), torch.arange(rows) % SERVE_SLOTS] = 1.0
+            sums = torch.zeros(SERVE_SLOTS, 5, t, device="cuda")
+            P = service.predict_rows(X, *args)
+            plain_ms = time_ms(lambda: service.predict_rows(X, *args), 50, 5)
+            # The row loop is launch-bound: time it and the whole scored
+            # wave in turns (wave, loop, loop, wave) and average.
+            runs = {"mixed": [], "chain": []}
+            for key in ("mixed", "chain", "chain", "mixed"):
+                fn = ((lambda: service.predict_mixed(X, Yt, oh, sums, *args))
+                      if key == "mixed" else
+                      (lambda: service.chain_sums(sums, Yt, P, oh)))
+                runs[key].append(time_ms(fn, 50, 5))
+            mixed_ms = sum(runs["mixed"]) / 2
+            chain_ms = sum(runs["chain"]) / 2
+            print(f"[serving] bucket {rows}: unscored wave {plain_ms:.3f} "
+                  f"ms, scored wave {mixed_ms:.3f} ms of which the row loop "
+                  f"of Pearson sums {chain_ms:.3f} ms "
+                  f"({100 * chain_ms / mixed_ms:.0f}%) [{card}]")
+        del reg, svc, fe, ref_reg, ref_svc, results, alone, e, args
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free()
+
+
+def _selected(argv: list[str]) -> set[int] | None:
+    """``--only 14,16`` runs phase 1 and the listed independent phases
+    (12 to 16) and prints no result lines: a quick check while working on
+    them.  With no arguments every phase runs."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
+                         "(N in 12..16)")
+    only = {int(v) for v in argv[1].split(",")}
+    if not only <= {12, 13, 14, 15, 16}:
+        raise SystemExit(f"--only takes phases 12 to 16, got {sorted(only)}")
+    return only
+
+
+def main(argv: list[str]) -> int:
     import torch
 
+    only = _selected(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
     env = phase_env()
     card = env["card"]
+    if only is not None:
+        for n, phase in ((12, phase_wholebrain), (13, phase_wholebrain_parity),
+                         (14, phase_mor), (15, phase_banded),
+                         (16, phase_serving)):
+            if n in only:
+                t0 = time.perf_counter()
+                phase(card)
+                print(f"[done] phase {n} passed in "
+                      f"{time.perf_counter() - t0:.1f} s")
+        print(f"[done] phases {sorted(only)} passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     phase_kernels_small()
     phase_backbone_kernels_small()
     phase_seed_kernels_small()
@@ -2223,6 +2709,9 @@ def main() -> int:
     phase_seed_dual(card)
     launches["xty_folds_masked"] += phase_wholebrain(card)
     phase_wholebrain_parity(card)
+    launches["xty"] += phase_mor(card)
+    phase_banded(card)
+    phase_serving(card)
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("split_engine.cu",
                            "src/repro/kernels/gram.py:158"),
@@ -2252,4 +2741,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

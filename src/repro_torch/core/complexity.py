@@ -1,11 +1,12 @@
 """Analytic time-complexity model of ridge variants (paper §3).
 
-A copy of the part of ``repro/core/complexity.py`` that the port's dispatch
-and ``chip_smoke.py`` use: floating-point multiplication counts of the
-single-shard ridge paths and the paper's Table 1 workloads.
+A copy of ``repro/core/complexity.py``: floating-point multiplication
+counts of the ridge variants the paper compares (the single-shard paths,
+MOR's Eq. 6 and B-MOR's Eq. 7) and the paper's Table 1 workloads, which the
+port's dispatch and ``chip_smoke.py`` use.
 
 Notation (paper Table 3): n time samples, p features, t targets, r candidate
-λ values.
+λ values, c concurrent workers (mesh shards).
 """
 from __future__ import annotations
 
@@ -19,6 +20,11 @@ class RidgeWorkload:
     t: int          # brain targets
     r: int = 11     # λ grid size (paper §2.2.4)
     n_folds: int = 5
+
+
+def t_m_naive(w: RidgeWorkload) -> float:
+    """T_M without the SVD trick: invert (XᵀX+λI) per λ — O(p³r + p²nr)."""
+    return float(w.p) ** 3 * w.r + float(w.p) ** 2 * w.n * w.r
 
 
 def t_m(w: RidgeWorkload) -> float:
@@ -54,6 +60,38 @@ def fold_redundancy_factor(w: RidgeWorkload) -> float:
 def t_m_dual(w: RidgeWorkload) -> float:
     """T_M in the dual/kernel form: factorise K = XXᵀ — O(n²pr + nr)."""
     return float(w.n) ** 2 * w.p * w.r + float(w.n) * w.r
+
+
+def t_bmor_sharded(w: RidgeWorkload, c_data: int, c_target: int) -> float:
+    """B-MOR with rows also sharded over ``c_data`` shards: the target axis
+    divides T_W, the row axis divides T_M and the single-pass fold
+    statistics (Eq. 7 extended)."""
+    return t_w(w) / c_target + (t_m(w) + t_w_folded(w)) / c_data
+
+
+def t_ridge_single(w: RidgeWorkload) -> float:
+    """Single-worker mutualised RidgeCV: T_M + T_W (paper §3.1)."""
+    return t_m(w) + t_w(w)
+
+
+def t_mor(w: RidgeWorkload, c: int) -> float:
+    """MOR: factorisation recomputed per *target* — Eq. 6: c⁻¹(T_W + t·T_M)."""
+    return (t_w(w) + w.t * t_m(w)) / c
+
+
+def t_bmor(w: RidgeWorkload, c: int) -> float:
+    """B-MOR: one factorisation per *batch* — Eq. 7: c⁻¹·T_W + T_M."""
+    return t_w(w) / c + t_m(w)
+
+
+def predicted_speedup_bmor(w: RidgeWorkload, c: int) -> float:
+    """DSU prediction: single-worker mutualised ridge over B-MOR on c workers."""
+    return t_ridge_single(w) / t_bmor(w, c)
+
+
+def mor_overhead_factor(w: RidgeWorkload, c: int) -> float:
+    """How much slower MOR is than B-MOR at equal parallelism."""
+    return t_mor(w, c) / t_bmor(w, c)
 
 
 # Paper workloads (Table 1).

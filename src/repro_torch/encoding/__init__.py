@@ -17,7 +17,17 @@ Out of core, the rows live in a ``RunStore`` and stream chunk by chunk:
     enc = BrainEncoder(device_memory_budget=4 << 30).fit(store=store)
     print(enc.report_.decision.method, enc.stream_stats_["chunks"])
 
-Everything runs on CUDA unless ``device="cpu"`` is passed.
+The paper's MOR baseline (one RidgeCV per target) and banded ridge (one λ
+per feature band) are explicit solver choices:
+
+    enc = BrainEncoder(solver="mor").fit(X_train, Y_train)
+    enc = BrainEncoder(bands=(4096,) * 4, n_band_candidates=16)
+    enc.fit(X_train, Y_train)             # dispatch → "banded"
+    print(enc.report_.band_lambdas)
+
+A saved encoder is served through ``repro_torch.serving_encoders``
+(``EncoderRegistry`` → ``EncoderService``).  Everything runs on CUDA
+unless ``device="cpu"`` is passed.
 """
 from repro_torch.encoding import dispatch, pipeline  # noqa: F401
 from repro_torch.encoding.config import EncoderConfig  # noqa: F401

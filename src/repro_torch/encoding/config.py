@@ -12,11 +12,12 @@ from typing import Literal
 
 import torch
 
+from repro_torch.core.banded import BandedConfig
 from repro_torch.core.ridge import PAPER_LAMBDA_GRID, RidgeCVConfig
 from repro_torch.kernels import ops
 
-# Solver identifiers, in the paper's vocabulary (only "ridge" runs in the
-# port so far; dispatch names the ROADMAP item of the others):
+# Solver identifiers, in the paper's vocabulary (the port runs ridge, mor
+# and banded on one device; dispatch names the ROADMAP item of the others):
 #   ridge     — single-shard SVD/eigh-mutualised RidgeCV (§2.3.1)
 #   mor       — MultiOutput ridge baseline, per-target recompute (§2.3.4)
 #   bmor      — Batch Multi-Output ridge, targets batched over shards (Alg. 1)
@@ -43,6 +44,8 @@ class EncoderConfig:
     solver: Solver = "auto"
     # Factorisation side for the ridge path ("auto" → primal iff n >= p).
     method: Literal["auto", "eigh", "dual"] = "auto"
+    # MOR only: one isolated fit per target (paper Fig. 8 semantics); in
+    # eager PyTorch mor_fit pays the same per-target cost.
     mor_taskwise: bool = False
 
     # --- banded ridge (set ``bands`` to enable) ----------------------------
@@ -85,6 +88,12 @@ class EncoderConfig:
             scoring=self.scoring,
             use_pallas=self.resolve_use_pallas(device))
 
-    def banded_config(self):
-        raise NotImplementedError(
-            "the banded solver is not ported yet (ROADMAP queue 1, item 9)")
+    def banded_config(self) -> BandedConfig:
+        """Project onto the low-level ``BandedConfig`` (requires ``bands``)."""
+        if self.bands is None:
+            raise ValueError("EncoderConfig.bands must be set for the banded "
+                             "solver (one feature count per band)")
+        return BandedConfig(
+            bands=self.bands, n_candidates=self.n_band_candidates,
+            log_lambda_range=self.band_log_lambda_range,
+            n_folds=self.n_folds, jitter=self.jitter)

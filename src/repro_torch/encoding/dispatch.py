@@ -1,15 +1,15 @@
 """Complexity-driven solver dispatch (paper §3, Eq. 6–7).
 
-Port of ``repro/encoding/dispatch.py`` for the plans the port runs: the
-single-shard ``ridge`` solver, primal eigh when ``n >= p`` and dual
-otherwise, the row-streamed ``chunked`` tier when the resident set exceeds
-``device_memory_budget``, and the target-blocked ``colblocked`` tier when
-even the ``(k, p, t)`` fold statistics break the budget (or
-``target_block`` is set).  Every other plan the reference can choose —
-MOR, B-MOR, dual B-MOR, banded — raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.  The decision fields and the plan's rationale
-match the reference's for the same inputs; the kernel-tier clause names
-the CUDA kernels.
+Port of ``repro/encoding/dispatch.py`` for the plans the port runs on one
+device: the single-shard ``ridge`` solver, primal eigh when ``n >= p`` and
+dual otherwise, the row-streamed ``chunked`` tier when the resident set
+exceeds ``device_memory_budget``, the target-blocked ``colblocked`` tier
+when even the ``(k, p, t)`` fold statistics break the budget (or
+``target_block`` is set), the explicit ``mor`` baseline and the ``banded``
+solver.  The multi-device plans — B-MOR and dual B-MOR — raise
+``NotImplementedError`` naming the ROADMAP item that ports them.  The
+decision fields and the plan's rationale match the reference's for the
+same inputs; the kernel-tier clause names the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -24,10 +24,8 @@ from repro_torch.encoding.config import EncoderConfig
 
 # Plans of the reference that the port does not run yet → ROADMAP item.
 _NOT_PORTED = {
-    "mor": "queue 1, item 9 (multi-device)",
     "bmor": "queue 1, item 9 (multi-device)",
     "bmor_dual": "queue 1, item 9 (multi-device)",
-    "banded": "queue 1, item 9 (banded ridge)",
 }
 
 
@@ -35,7 +33,7 @@ _NOT_PORTED = {
 class DispatchDecision:
     """The resolved execution plan, with the model cost that justified it."""
 
-    solver: str              # "ridge" (the only solver the port runs yet)
+    solver: str              # "ridge" | "mor" | "banded" (one device)
     method: str              # "eigh" | "dual" | "chunked" | "colblocked"
     data_shards: int
     target_shards: int
@@ -62,6 +60,18 @@ def estimated_resident_bytes(n: int, p: int, t: int,
     ``n·p + n·t_shard`` elements."""
     t_shard = -(-t // max(target_shards, 1))
     return n * (p + t_shard) * itemsize
+
+
+def mixed_wave_scoring_bytes(wave_rows: int, t: int, score_slots: int,
+                             itemsize: int = 4) -> int:
+    """Extra resident bytes a MIXED serving wave pins beyond the plain
+    predict's activation set: the padded target block (``wave_rows·t``),
+    the per-row request one-hot (``wave_rows·score_slots``), and the
+    in/out per-slot Pearson-sum carries (``2·score_slots·5·t``)."""
+    if score_slots <= 0:
+        return 0
+    return (wave_rows * t + wave_rows * score_slots
+            + 2 * 5 * score_slots * t) * itemsize
 
 
 def _chunked_decision(cfg: EncoderConfig, w: RidgeWorkload, resident: int,
@@ -150,7 +160,8 @@ def resolve(cfg: EncoderConfig, n: int, p: int, t: int,
     """Resolve ``cfg.solver`` ("auto" or explicit) into a concrete plan.
 
     The port is single-device for now, so ``device_count`` is 1 and
-    ``auto`` resolves to the ``ridge`` solver.  ``device`` (default: CUDA,
+    ``auto`` resolves to the ``ridge`` solver, or ``banded`` when
+    ``cfg.bands`` is set.  ``device`` (default: CUDA,
     raising without one) decides the kernel tier.
     """
     decision = _resolve_plan(cfg, n, p, t, device_count)
@@ -207,8 +218,27 @@ def _resolve_plan(cfg: EncoderConfig, n: int, p: int, t: int,
             solver = "bmor_dual"
         else:
             solver = "bmor"
-    if solver != "ridge":
+    if solver in _NOT_PORTED:
         raise _not_ported(solver)
+
+    if solver == "banded":
+        if cfg.bands is None:
+            raise ValueError("banded solver requires EncoderConfig.bands")
+        return DispatchDecision(
+            solver="banded", method="eigh", data_shards=1, target_shards=1,
+            predicted_cost=cfg.n_band_candidates * complexity.t_m(w),
+            rationale=f"{len(cfg.bands)} feature bands → per-band λ "
+                      f"(Tikhonov substitution), one T_M per candidate")
+
+    if solver == "mor":
+        c_t = cfg.target_shards or 1
+        cost = complexity.t_mor(w, c_t)
+        return DispatchDecision(
+            solver="mor", method=method, data_shards=1, target_shards=c_t,
+            predicted_cost=cost,
+            rationale=f"explicit MOR baseline: t·T_M recompute, Eq. 6 — "
+                      f"{complexity.mor_overhead_factor(w, max(c_t, 1)):.0f}×"
+                      f" the B-MOR work at c={c_t} (never auto-selected)")
 
     # The CV Gram statistics are single-pass (t_w_folded = np², not the
     # per-fold k·np²) — foldstats downdating keeps the k-fold redundancy off

@@ -1,8 +1,9 @@
 """``BrainEncoder`` — the scikit-learn-style facade over the ridge solver.
 
 Port of ``repro/encoding/estimator.py`` for one device: ``fit(X, Y)``
-resolves the plan through ``encoding.dispatch`` and runs
-``core.ridge.ridge_cv``; ``fit(store=)`` and ``fit_chunks`` stream the rows
+resolves the plan through ``encoding.dispatch`` and runs the chosen
+solver — ``core.ridge.ridge_cv``, the per-target MOR baseline
+(``core.mor``) or banded ridge (``core.banded``); ``fit(store=)`` and ``fit_chunks`` stream the rows
 of a ``RunStore`` (or any ordered chunk source) through
 ``foldstats.FoldStatsAccumulator`` and solve from the statistics alone
 (``ridge.ridge_cv_from_stats``), or — when even the ``(k, p, t)``
@@ -19,7 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import foldstats, ridge, scoring
+from repro_torch.core import banded, foldstats, mor, ridge, scoring
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.encoding.config import EncoderConfig
 from repro_torch.encoding.dispatch import DispatchDecision, resolve
@@ -33,7 +34,10 @@ _SOLVER_LABELS = {
 @dataclasses.dataclass
 class EncodingReport:
     """Fit result: weights, selected λ and CV curve (one batch: ``(1,)`` and
-    ``(1, r)``), the swept grid, and the dispatch decision."""
+    ``(1, r)``), the swept grid, and the dispatch decision.  MOR selects λ
+    per target inside its fits (``best_lambda`` empty, ``cv_scores``
+    ``(0, r)``); banded ridge reports its CV curve over the candidates and
+    the winning ``band_lambdas`` (``best_lambda`` and ``lambdas`` empty)."""
 
     weights: torch.Tensor | None       # (p, t)
     best_lambda: np.ndarray            # (n_batches,)
@@ -162,7 +166,8 @@ class BrainEncoder:
         n, p = X.shape
         t = Y.shape[1]
         decision = resolve(self.config, n, p, t, 1, device=self.device)
-        self.report_ = self._fit_ridge(X, Y, decision)
+        fitter = getattr(self, f"_fit_{decision.solver}")
+        self.report_ = fitter(X, Y, decision)
         return self
 
     def fit_chunks(self, chunks, n_total: int | None = None,
@@ -393,3 +398,31 @@ class BrainEncoder:
             best_lambda=res.best_lambda.cpu().numpy()[None],
             cv_scores=res.cv_scores.cpu().numpy()[None, :],
             lambdas=self.config.lambdas, decision=decision)
+
+    def _fit_mor(self, X, Y, decision: DispatchDecision) -> EncodingReport:
+        cfg = self.config.ridge_cv_config(decision.method, device=self.device)
+        fit = mor.mor_fit_taskwise if self.config.mor_taskwise else \
+            mor.mor_fit
+        return EncodingReport(
+            weights=fit(X, Y, cfg),
+            best_lambda=np.empty((0,)),          # per-target λ stays internal
+            cv_scores=np.empty((0, len(self.config.lambdas))),
+            lambdas=self.config.lambdas, decision=decision)
+
+    def _fit_banded(self, X, Y, decision: DispatchDecision) -> EncodingReport:
+        """Banded RidgeCV; the candidates come from a CPU generator seeded
+        with ``config.seed`` (a different draw from the reference's
+        ``jax.random`` one for the same seed)."""
+        bands = self.config.bands
+        if sum(bands) != X.shape[1]:
+            raise ValueError(f"bands {bands} sum to {sum(bands)} but X has "
+                             f"{X.shape[1]} features")
+        res = banded.banded_ridge_cv(
+            torch.Generator().manual_seed(self.config.seed), X, Y,
+            self.config.banded_config())
+        return EncodingReport(
+            weights=res.weights,
+            best_lambda=np.empty((0,)),          # per-band, not per-grid-λ
+            cv_scores=res.cv_scores.cpu().numpy()[None, :],
+            lambdas=(), decision=decision,
+            band_lambdas=res.band_lambdas.cpu().numpy())

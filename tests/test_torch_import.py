@@ -45,7 +45,12 @@ def test_port_has_every_slice_module():
               "repro_torch.wholebrain.stats", "repro_torch.wholebrain.solver",
               "repro_torch.wholebrain.artifact", "repro_torch.checkpoint",
               "repro_torch.checkpoint.io", "repro_torch.serving_encoders",
-              "repro_torch.serving_encoders.bundle"):
+              "repro_torch.serving_encoders.bundle", "repro_torch.core.mor",
+              "repro_torch.core.banded",
+              "repro_torch.serving_encoders.registry",
+              "repro_torch.serving_encoders.service",
+              "repro_torch.serving_encoders.traffic",
+              "repro_torch.serving_encoders.fleet"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):
@@ -122,15 +127,29 @@ def test_use_pallas_true_on_cpu_raises():
 
 
 def test_unported_plans_raise_not_implemented_naming_roadmap():
+    from repro.encoding import EncoderConfig as JConfig
+    from repro.encoding import resolve as jresolve
+    from repro_torch.core.banded import BandedConfig
     from repro_torch.encoding import EncoderConfig, dispatch
 
-    for solver in ("mor", "bmor", "bmor_dual", "banded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The multi-device plans (item 9) still raise, naming their item.
+    for solver in ("bmor", "bmor_dual"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
             dispatch.resolve(EncoderConfig(solver=solver), 100, 10, 5, 1,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        dispatch.resolve(EncoderConfig(bands=(5, 5)), 100, 10, 5, 1,
-                         device="cpu")
+    # MOR and banded ridge (item 14) are ported: explicit solvers and an
+    # auto config with bands= resolve to the reference's decision.
+    for kw in (dict(solver="mor"), dict(solver="banded", bands=(5, 5)),
+               dict(bands=(5, 5))):
+        got = dispatch.resolve(EncoderConfig(**kw), 100, 10, 5, 1,
+                               device="cpu")
+        want = jresolve(JConfig(**kw), 100, 10, 5, 1)
+        assert (got.solver, got.method, got.data_shards, got.target_shards,
+                got.predicted_cost) == \
+            (want.solver, want.method, want.data_shards, want.target_shards,
+             want.predicted_cost)
+        assert got.rationale.split("; kernel tier")[0] == \
+            want.rationale.split("; kernel tier")[0]
     # The streamed fit (item 6) is ported: the same budget now resolves.
     d = dispatch.resolve(EncoderConfig(device_memory_budget=10**6),
                          100_000, 64, 8, 1, device="cpu")
@@ -146,5 +165,8 @@ def test_unported_plans_raise_not_implemented_naming_roadmap():
                          device="cpu")
     assert (d.solver, d.method, d.target_block) == ("ridge", "colblocked", 4)
     assert "4 block(s) of t_block=4" in d.rationale
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EncoderConfig(bands=(2, 2)).banded_config()
+    assert EncoderConfig(bands=(2, 2)).banded_config() == BandedConfig(
+        bands=(2, 2), n_candidates=16, log_lambda_range=(-2.0, 4.0),
+        n_folds=5, jitter=1e-6)
+    with pytest.raises(ValueError, match="bands must be set"):
+        EncoderConfig().banded_config()

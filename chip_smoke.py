@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
 nvcc into ``build/kernels/``, then runs sixteen phases, each of which
 raises (exit code 1) on a failed check (``--only 14,16`` runs the build
-and just the listed phases, 12 to 16, and prints no result lines):
+and just the listed phases, 6 and 12 to 16, and prints no result lines):
 
 1. Environment: versions, TF32 switches (all off), card name and power
    limit, kernel build time (one nvcc per source, in parallel; beside it,
@@ -39,7 +39,15 @@ and just the listed phases, 12 to 16, and prints no result lines):
    and by a budgeted ``BrainEncoder.fit(store=)``.  Each must launch
    ``xty_folds_masked`` 9 times (8,192-row chunks); the first must come out
    significant on the 7,689 held-out rows, the second must resolve to the
-   ``chunked`` plan and equal the in-memory fit of the same rows.
+   ``chunked`` plan and equal the in-memory fit of the same rows.  The
+   second runs under a ``repro_torch.obs`` tracer with
+   ``REPRO_OBS_STRICT=1``: the span table of ``launch/obs_report.py``, the
+   fit root's coverage by its phase spans (at least 95%), and
+   ``prefetch.stage`` against ``prefetch.wait``.  Then the same fit through
+   ``faultsim.wrap_store`` with transient faults planned on one shard mmap
+   and two chunk reads: λ, W and the CV curve bitwise equal to the
+   unfaulted fit, 9 launches and no new signature, ``io_retries{op}`` equal
+   to the plan (1 ``store.mmap``, 2 ``prefetch.read``).
 
 7. The backbone kernels (``flash_attention``, ``ssd_intra``) against their
    plain versions, f32 and bf16, at small ragged shapes covering every
@@ -95,10 +103,18 @@ and just the listed phases, 12 to 16, and prints no result lines):
     a ``RunStore`` under ``build/`` written by ``materialize_synthetic``
     (10.6 GB of Y and 0.66 GB of X), ``BrainEncoder(device_memory_budget=
     64 GiB, target_block=16,384).fit(store=)``, which must plan
-    ``colblocked`` itself (17 blocks, the last of 2,661 targets), make 36
-    ``xty_folds_masked`` launches (2 chunks × (the X-only pass + 17
-    blocks)) with one signature per update and one pass over X (its rows
-    cached); its first column-block launch is held against the plain
+    ``colblocked`` itself (17 blocks, the last of 2,661 targets).  The fit
+    is killed and resumed: a child process (this script with a private
+    flag) fits with a ``FitJournal`` wrapped in
+    ``faultsim.KillAfterBlock`` and must exit 42 right after block 8
+    commits (20 launches); its scratch is deleted, and this process
+    resumes from the journal under a tracer with ``REPRO_OBS_STRICT=1``:
+    9 blocks replayed, 8 streamed (16 launches: 36 in all, 2 chunks × (the
+    X-only pass + 17 blocks)), one new column-block signature, one pass
+    over X (the cache rebuilt), the journal deleted; the child's and the
+    resume's seconds beside PR 19's uninterrupted 310.44 s, the span
+    table, and the split of ``fit.wholebrain`` by its spans.  The resume's
+    first column-block launch is held against the plain
     version on its operands, the first and the ragged last block's
     weights against the unblocked statistics solve of their columns (rtol
     1e-4, atol 2e-4).  Then ``save`` (17 shards, 17.4 GB), reopened with
@@ -109,14 +125,21 @@ and just the listed phases, 12 to 16, and prints no result lines):
     columns 10,000–30,000 of the saved bundle, under a registry budget
     that holds only the two weight shards they touch (2 shard loads, no
     whole-bundle residency), held against ``X·W[:, window]``.
-    Free disk (~31 GB: the store, then the Â scratch or the bundle) and
-    host RAM (~40 GB) are checked first; everything is deleted at the end.
+    Free disk under ``build/`` (~31 GB: the store, then the bundle), free
+    space in ``/dev/shm`` (~42 GB: the 22.7 GB journal and the Â scratch,
+    kept off the disk because the card's machine caps a run's disk writes
+    at 45 GiB) and host RAM (~62 GB) are checked first; everything is
+    deleted at the end.
 13. The tier's parity on the card at n=4,000, p=2,048, t=6,728, 1,024-row
     chunks, t_block=2,048: kernel tier = plain tier, global mode = the
     unblocked ``chunked`` tier, per-block mode = ``ridge_cv_from_stats``
     per block, the spill path (X re-streamed per block) bitwise equal to
     the cached run, and ``BundleWriter`` shards (f32, bf16) bitwise equal
-    to the collected weights (bf16 rounded to nearest even).
+    to the collected weights (bf16 rounded to nearest even).  Then, in both
+    λ modes, a child killed by ``KillAfterBlock`` after block 1 and a
+    resume in this process: λ, CV curve, W and ``lambda_by_target``
+    bitwise equal to the uninterrupted fit; a journal of another
+    ``t_block`` is refused (``JournalError``).
 14. The MOR baseline at the ``whole_brain_mor`` width (n=1,000,
     p=16,384; t cut from 2,000 to 256): ``resolve`` gives plan ``mor``,
     method ``dual``, one target shard; ``BrainEncoder(solver="mor").fit``
@@ -140,7 +163,13 @@ and just the listed phases, 12 to 16, and prints no result lines):
     every bucket, ``compile_count`` = buckets flown, evictions > 0,
     predictions within rtol 1e-4/atol 2e-4 of a float64 host product,
     served r within 1e-4 of ``ops.pearson_r``; rows/s and wave times by
-    bucket with the Pearson row loop's share.
+    bucket with the Pearson row loop's share.  Both replays run with
+    ``REPRO_OBS_STRICT=1``; a second replay on a fresh stack runs under a
+    tracer: the host time split by ``serve.wave.build``,
+    ``serve.wave.execute``, ``registry.load`` and ``fleet.flush``, the
+    counters ``waves``, ``wave_rows``, ``wave_pad_rows`` and
+    ``admitted_rows`` equal to ``ServiceStats``, and its results bitwise
+    equal to the untraced replay's.
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -149,7 +178,9 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -230,6 +261,13 @@ SERVE_MODELS, SERVE_REQUESTS, SERVE_SLOTS = 4, 64, 4
 # against the pearson_r kernel on the same rows (its sums in another
 # order, finalised in f32): summation order and the f32 finalise alone.
 PEARSON_TOL = 1e-4
+# Phases 6, 12 and 13: the traced fit's root must attribute this share of
+# its wall time to its phase spans (the reference's coverage gate); the
+# whole-brain fit is killed after this block and resumed (exit code of
+# faultsim.KillAfterBlock); phase 12's uninterrupted fit in PR 19's run.
+COVERAGE_GATE = 0.95
+WB_KILL_AFTER, WB13_KILL_AFTER, KILLED = 8, 1, 42
+WB_UNINTERRUPTED_S = 310.44
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -289,6 +327,149 @@ def free() -> None:
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _strict():
+    """``REPRO_OBS_STRICT=1`` (the recompile sentinel armed) for the block
+    only; the previous value is restored."""
+    saved = os.environ.get("REPRO_OBS_STRICT")
+    os.environ["REPRO_OBS_STRICT"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_OBS_STRICT", None)
+        else:
+            os.environ["REPRO_OBS_STRICT"] = saved
+
+
+@contextlib.contextmanager
+def _traced():
+    """A tracer installed for the block only; yields it."""
+    from repro_torch import obs
+    tracer = obs.install()
+    try:
+        yield tracer
+    finally:
+        obs.uninstall()
+
+
+def _span_s(events, name: str, **attrs) -> tuple[int, float]:
+    """(count, total seconds) of the spans called ``name`` whose attributes
+    include ``attrs``."""
+    durs = [e["dur_us"] for e in events
+            if e["name"] == name and not e.get("instant")
+            and all(e["attrs"].get(k) == v for k, v in attrs.items())]
+    return len(durs), sum(durs) / 1e6
+
+
+def _print_spans(tag: str, events, card: str) -> tuple[dict, float]:
+    """The per-span table of ``launch/obs_report.py`` and the root's
+    coverage by its direct children."""
+    from repro_torch.launch import obs_report
+    for line in obs_report.render(events).splitlines():
+        print(f"[{tag}]   {line}")
+    root, cov = obs_report.root_coverage(events)
+    print(f"[{tag}] spans on the host clock [{card}]")
+    return root, cov
+
+
+def _counter_deltas(before: dict, prefix: str) -> dict:
+    from repro_torch import obs
+    after = obs.snapshot()["counters"]
+    return {k: after[k] - before.get(k, 0.0) for k in after
+            if k.startswith(prefix) and after[k] != before.get(k, 0.0)}
+
+
+class _RecordBlocks:
+    """``FitJournal`` wrapper of the killed child: after each block commits,
+    write the launches and seconds so far to ``out`` (the kill that follows
+    leaves no later moment to report them)."""
+
+    def __init__(self, journal, out: str, t0: float):
+        self._journal, self._out, self._t0 = journal, out, t0
+
+    def put_block(self, bi: int, **kwargs) -> None:
+        self._journal.put_block(bi, **kwargs)
+        with open(self._out, "w") as f:
+            json.dump({"block": bi, "launches": _counters(),
+                       "seconds": time.perf_counter() - self._t0}, f)
+
+    def __getattr__(self, name):
+        return getattr(self._journal, name)
+
+
+def _kill_child(spec_path: str) -> int:
+    """The child process of phases 12 and 13: fit ``spec["store"]`` with a
+    ``FitJournal`` wrapped in ``faultsim.KillAfterBlock``, so the process
+    ends with ``os._exit(42)`` right after block ``spec["kill_after"]``
+    commits.  Phase 12 fits through ``BrainEncoder.fit(store=)``, phase 13
+    through ``fit_wholebrain``."""
+    import torch
+    from repro_torch.data.store import RunStore
+    from repro_torch.encoding import BrainEncoder, EncoderConfig
+    from repro_torch.kernels import _build
+    from repro_torch.resilience import FitJournal
+    from repro_torch.resilience.faultsim import KillAfterBlock
+    from repro_torch.wholebrain import solver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = spec["device"]
+    if dev == "cuda":
+        _build.load()
+    tempfile.tempdir = spec["tmpdir"]
+    store = RunStore.open(spec["store"])
+    cfg = EncoderConfig(**spec["cfg"])
+    kw = dict(t_block=spec["t_block"], lambda_mode=spec["lambda_mode"])
+    sig = solver.journal_signature(store, cfg, device=dev, **kw)
+    t0 = time.perf_counter()
+    journal = KillAfterBlock(
+        _RecordBlocks(FitJournal.attach(spec["journal"], sig), spec["out"],
+                      t0), spec["kill_after"], exit_code=KILLED)
+    _reset_counters()
+    if spec["route"] == "encoder":
+        fit = functools.partial(solver.fit_wholebrain, journal=journal)
+        with _patched((solver, "fit_wholebrain", fit)):
+            BrainEncoder(cfg, device=dev).fit(store=store)
+    else:
+        solver.fit_wholebrain(store, cfg, journal=journal, device=dev,
+                              scratch_dir=spec["tmpdir"], **kw)
+    print("chip_smoke child: the fit ended without being killed",
+          file=sys.stderr)
+    return 1
+
+
+def _run_killed_child(tag: str, spec: dict, card: str) -> dict:
+    """Run ``_kill_child`` in a new process (strict mode on); it must exit
+    with ``KILLED``.  Returns what it recorded, with its wall seconds."""
+    path = Path(spec["tmpdir"]) / "child_spec.json"
+    Path(spec["tmpdir"]).mkdir(parents=True, exist_ok=True)
+    spec = dict({"device": "cuda"}, **spec,
+                out=str(Path(spec["tmpdir"]) / "child_record.json"))
+    path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--kill-child",
+         str(path)], env=dict(os.environ, REPRO_OBS_STRICT="1"),
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode != KILLED:
+        print(out.stdout[-4000:])
+        print(out.stderr[-4000:], file=sys.stderr)
+    check(out.returncode == KILLED,
+          f"{tag}: the killed child exited {out.returncode}, want {KILLED}")
+    rec = json.loads(Path(spec["out"]).read_text())
+    check(rec["block"] == spec["kill_after"],
+          f"{tag}: the child's last block {rec['block']}")
+    print(f"[{tag}] child killed after block {spec['kill_after']} (exit "
+          f"{out.returncode}): {wall:.2f} s wall, {rec['seconds']:.2f} s in "
+          f"its fit; launches {rec['launches']} [{card}]")
+    return dict(rec, wall=wall)
 
 
 # --------------------------------------------------------------------------
@@ -838,11 +1019,14 @@ def phase_paths() -> None:
 def phase_streamed(card: str) -> int:
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.core import complexity
     from repro_torch.data import fmri
     from repro_torch.data.store import RunStore
     from repro_torch.encoding import BrainEncoder, EncoderConfig, pipeline
     from repro_torch.kernels import gram
+    from repro_torch.resilience import FaultPolicy
+    from repro_torch.resilience import faultsim
 
     w = complexity.PAPER_WORKLOADS["parcels"]
     n_all = rows_before_split(w.n)
@@ -914,25 +1098,86 @@ def phase_streamed(card: str) -> int:
         del state, rep, std
         free()
 
-        # (b) budgeted fit(store=) → chunked, against the in-memory fit.
+        # (b) budgeted fit(store=) → chunked, traced, with the recompile
+        # sentinel armed; against the in-memory fit below.
         budget = 4 << 30
+        cfg_b = EncoderConfig(device_memory_budget=budget)
         gram.reset_launches()
-        t0 = time.perf_counter()
-        enc = BrainEncoder(EncoderConfig(device_memory_budget=budget),
-                           device="cuda").fit(store=store)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
+        with _strict(), _traced() as tracer:
+            t0 = time.perf_counter()
+            enc = BrainEncoder(cfg_b, device="cuda").fit(store=store)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
         launches_b = dict(gram.LAUNCHES)
         d = enc.report_.decision
         print(f"[streamed] fit(store=) with device_memory_budget="
               f"{budget / 2**30:g} GiB (resident set "
               f"{store.nbytes_resident() / 2**30:.2f} GiB): decision "
               f"{d.solver}/{d.method} kernel tier {d.use_pallas}; launches "
-              f"{launches_b}; {fit_s:.2f} s [{card}]")
+              f"{launches_b}; {fit_s:.2f} s traced, REPRO_OBS_STRICT=1 "
+              f"[{card}]")
         check(d.method == "chunked" and d.use_pallas, f"budgeted decision {d}")
         check(launches_b["xty_folds_masked"] == n_chunks,
               f"fit(store=) launches {launches_b}")
+        events = tracer.events()
+        root_ev, cov = _print_spans("streamed", events, card)
+        n_st, stage_s = _span_s(events, "prefetch.stage")
+        n_wt, wait_s = _span_s(events, "prefetch.wait")
+        print(f"[streamed] root {root_ev['name']!r} {root_ev['dur_us'] / 1e6:.3f}"
+              f" s, {100 * cov:.1f}% attributed to its phases (gate "
+              f"{100 * COVERAGE_GATE:.0f}%); read side: prefetch.stage "
+              f"{stage_s:.3f} s in {n_st} staging copies (reader thread, "
+              f"memmap page-in + copy into pinned buffers) against "
+              f"prefetch.wait {wait_s:.3f} s in {n_wt} waits (the fit "
+              f"blocked on the reader) [{card}]")
+        check(root_ev["name"] == "fit" and cov >= COVERAGE_GATE,
+              f"fit root coverage {cov:.3f} < {COVERAGE_GATE}")
+        check(n_st == n_chunks, f"{n_st} prefetch.stage spans")
         W_s, lam_s = enc.weights_.cpu(), enc.report_.best_lambda[0]
+        cv_s = enc.report_.cv_scores
+        del enc
+        free()
+
+        # (c) the same fit through faultsim.wrap_store, with transient
+        # faults planned on a shard mmap and on two chunk reads: retried
+        # (virtual-time backoff), bitwise the same fit, no new signature.
+        store.fault_policy = FaultPolicy(max_attempts=3,
+                                         seed=6).with_virtual_time()
+        inj = faultsim.FaultInjector(seed=6)
+        inj.plan("store.mmap", 1)
+        inj.plan("store.chunk", 2)
+        inj.plan("store.chunk", 7)
+        before = obs.snapshot()["counters"]
+        gram.reset_launches()
+        with _strict():
+            t0 = time.perf_counter()
+            enc = BrainEncoder(cfg_b, device="cuda").fit(
+                store=faultsim.wrap_store(store, inj))
+            torch.cuda.synchronize()
+            fault_s = time.perf_counter() - t0
+        store.fault_policy = None
+        launches_c = dict(gram.LAUNCHES)
+        retries = _counter_deltas(before, "io_retries")
+        giveups = _counter_deltas(before, "io_giveups")
+        fired = {op: inj.fired(op) for op in ("store.mmap", "store.chunk")}
+        same = (torch.equal(enc.weights_.cpu(), W_s)
+                and enc.report_.best_lambda[0] == lam_s
+                and np.array_equal(enc.report_.cv_scores, cv_s))
+        print(f"[streamed] fit(store=) under injected faults {fired}: "
+              f"{retries} retried, {giveups or 'no'} give-ups; launches "
+              f"{launches_c}; new signatures "
+              f"{enc.stream_stats_['compile_count']}; λ, W and CV curve "
+              f"bitwise equal to the unfaulted fit: {same}; {fault_s:.2f} s "
+              f"[{card}]")
+        check(fired == {"store.mmap": 1, "store.chunk": 2}, f"fired {fired}")
+        check(retries == {"io_retries{op=store.mmap}": 1.0,
+                          "io_retries{op=prefetch.read}": 2.0} and not giveups,
+              f"retries {retries}, give-ups {giveups}")
+        check(launches_c["xty_folds_masked"] == n_chunks
+              and enc.stream_stats_["compile_count"] == 0,
+              f"faulted fit launches {launches_c}, "
+              f"{enc.stream_stats_['compile_count']} new signatures")
+        check(same, "the faulted fit differs from the unfaulted one")
         del enc
         free()
         mem = BrainEncoder(device="cuda").fit(*store.load())
@@ -1900,6 +2145,7 @@ def phase_wholebrain(card: str) -> int:
     from repro_torch.data.store import RunStore
     from repro_torch.encoding import BrainEncoder, EncoderConfig
     from repro_torch.kernels import ops, ref
+    from repro_torch.resilience import FitJournal
     from repro_torch.serving_encoders import EncoderBundle
     from repro_torch.wholebrain import column_blocks, solver
     from repro_torch.wholebrain import stats as wstats
@@ -1911,36 +2157,55 @@ def phase_wholebrain(card: str) -> int:
     k = cfg.n_folds
     blocks = column_blocks(t, WB_TARGET_BLOCK)
     n_chunks = -(-n // CHUNK_ROWS)
+    # Launches: the killed child makes the X-only pass and blocks 0..8 (one
+    # launch per chunk each, block 0's riding the X-only pass's stream); the
+    # resume streams the other 8 blocks — together an uninterrupted fit's.
     want = n_chunks * (1 + len(blocks))
-    # Resources, reckoned first: the store, then the fit's Â scratch or the
-    # bundle (the scratch is deleted when the fit ends); on the host the
-    # collected W and the copy save() makes of it.
+    want_child = n_chunks * (2 + WB_KILL_AFTER)
+    n_replayed = WB_KILL_AFTER + 1
+    # Resources, reckoned first.  On disk under build/: the store, then the
+    # bundle.  In RAM: the fit's journal (the X-only Grams and every
+    # block's Â) and Â scratch go to /dev/shm, not the disk: the card's
+    # machine caps what one run writes to its disk at 45 GiB, and the
+    # store, the bundle and phase 6's store take ~34 GB of it.  Both are
+    # deleted when the fit ends (the killed child's scratch before the
+    # resume).  On the host the fit holds them beside the collected W;
+    # save() then copies W.
     store_b, wt_b = n * (p + t) * 4, p * t * 4
+    journal_b = k * p * p * 4 + wt_b
     disk_need = store_b + wt_b + (2 << 30)
-    ram_need = 2 * wt_b + n * p * 4 + (4 << 30)
-    build = ROOT / "build"
+    shm_need = journal_b + wt_b + (2 << 30)
+    ram_need = journal_b + 2 * wt_b + n * p * 4 + (4 << 30)
+    build, shm = ROOT / "build", Path("/dev/shm")
     build.mkdir(exist_ok=True)
     disk_free, ram_free = shutil.disk_usage(build).free, _mem_available()
-    print(f"[wholebrain] n={n} p={p} t={t}: store {store_b / 1e9:.2f} GB, "
-          f"Â scratch {wt_b / 1e9:.2f} GB, bundle {wt_b / 1e9:.2f} GB on "
-          f"disk (need {disk_need / 1e9:.1f} GB, {disk_free / 1e9:.1f} GB "
-          f"free under {build}); host RAM need {ram_need / 1e9:.1f} GB, "
-          f"{ram_free / 1e9:.1f} GB available")
+    shm_free = shutil.disk_usage(shm).free if shm.is_dir() else 0
+    print(f"[wholebrain] n={n} p={p} t={t}: store {store_b / 1e9:.2f} GB "
+          f"and bundle {wt_b / 1e9:.2f} GB on disk (need "
+          f"{disk_need / 1e9:.1f} GB, {disk_free / 1e9:.1f} GB free under "
+          f"{build}); journal {journal_b / 1e9:.2f} GB and Â scratch "
+          f"{wt_b / 1e9:.2f} GB in {shm} (need {shm_need / 1e9:.1f} GB, "
+          f"{shm_free / 1e9:.1f} GB free); host RAM need "
+          f"{ram_need / 1e9:.1f} GB, {ram_free / 1e9:.1f} GB available")
     check(disk_free > disk_need,
           f"phase 12 needs {disk_need / 1e9:.1f} GB of disk under {build} "
-          f"(store, then the Â scratch or the bundle), which has "
-          f"{disk_free / 1e9:.1f} GB free: free disk space and rerun")
+          f"(the store, then the bundle), which has {disk_free / 1e9:.1f} "
+          f"GB free: free disk space and rerun")
+    check(shm_free > shm_need,
+          f"phase 12 needs {shm_need / 1e9:.1f} GB free in {shm} for "
+          f"the journal and the Â scratch, {shm_free / 1e9:.1f} GB free")
     check(ram_free > ram_need,
-          f"phase 12 needs {ram_need / 1e9:.1f} GB of host RAM (W collected "
-          f"once, then copied by save), {ram_free / 1e9:.1f} GB available: "
-          f"free memory and rerun")
+          f"phase 12 needs {ram_need / 1e9:.1f} GB of host RAM (the "
+          f"journal, the scratch and the collected W), "
+          f"{ram_free / 1e9:.1f} GB available: free memory and rerun")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_wb_", dir=build))
-    (root / "tmp").mkdir()
+    fast = Path(tempfile.mkdtemp(prefix="chip_smoke_wb_", dir=shm))
+    (fast / "tmp").mkdir()
     saved_tempdir = tempfile.tempdir
     try:
         # The fit's scratch goes to the default temporary directory: keep
-        # it on the disk checked above.
-        tempfile.tempdir = str(root / "tmp")
+        # it in /dev/shm, checked above.
+        tempfile.tempdir = str(fast / "tmp")
         t0 = time.perf_counter()
         RunStore.create(str(root / "store"), n_folds=k).materialize_synthetic(
             fmri.SubjectSpec(n=n, p=p, t=t), seed=18, rows_per_run=RUN_ROWS,
@@ -1951,8 +2216,43 @@ def phase_wholebrain(card: str) -> int:
               f"rows written by materialize_synthetic in {write_s:.2f} s")
         free()
 
+        # A child process fits through BrainEncoder.fit(store=) with a
+        # journal and is killed right after block 8 commits; its scratch
+        # is deleted, and this process resumes from the journal.
+        jdir = fast / "journal"
+        # The child's fit peaks at ~53 GiB of the card (PR 19's in-process
+        # fit), beside what this process still holds.
+        card_free = torch.cuda.mem_get_info()[0]
+        print(f"[wholebrain] before the child this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the "
+              f"card has {card_free / 2**30:.2f} GiB free")
+        check(card_free > 56 << 30, f"the child needs ~56 GiB of the card, "
+              f"{card_free / 2**30:.2f} GiB free")
+        child = _run_killed_child("wholebrain", dict(
+            store=str(root / "store"), journal=str(jdir),
+            tmpdir=str(fast / "child_tmp"), kill_after=WB_KILL_AFTER,
+            route="encoder", t_block=WB_TARGET_BLOCK, lambda_mode="global",
+            cfg=dict(device_memory_budget=WB_BUDGET,
+                     target_block=WB_TARGET_BLOCK, chunk_rows=CHUNK_ROWS)),
+            card)
+        check(child["launches"].get("xty_folds_masked") == want_child,
+              f"child launches {child['launches']}, want {want_child}")
+        ledger = json.loads((jdir / "ledger.json").read_text())
+        journal_size = sum(f.stat().st_size for f in jdir.iterdir())
+        scratch_size = sum(f.stat().st_blocks * 512
+                           for f in (fast / "child_tmp").rglob("*")
+                           if f.is_file())
+        print(f"[wholebrain] journal after the kill: X statistics "
+              f"{ledger['xstats']}, blocks {sorted(map(int, ledger['blocks']))}"
+              f", {journal_size / 1e9:.2f} GB; the child's scratch "
+              f"{scratch_size / 1e9:.2f} GB deleted before the resume")
+        check(ledger["xstats"] and set(map(int, ledger["blocks"]))
+              == set(range(n_replayed)), f"ledger blocks {ledger['blocks']}")
+        shutil.rmtree(fast / "child_tmp")
+
         timers = dict.fromkeys(("stats", "check", "eighs", "scoring",
-                                "solve", "fit_wholebrain"), 0.0)
+                                "solve", "journal", "fit_wholebrain"), 0.0)
         first = {}
         inside = []
         update = foldstats.FoldStatsAccumulator.update
@@ -1993,7 +2293,8 @@ def phase_wholebrain(card: str) -> int:
 
         torch.cuda.reset_peak_memory_stats()
         _reset_counters()
-        with _patched(
+        resume = functools.partial(solver.fit_wholebrain, journal=str(jdir))
+        with _strict(), _traced() as tracer, _patched(
                 (foldstats.FoldStatsAccumulator, "update", timed_update),
                 (wstats._ColumnBlockUpdate, "__call__", in_colblock),
                 (ops, "xty_folds_masked", keep_first),
@@ -2008,8 +2309,12 @@ def phase_wholebrain(card: str) -> int:
                                             "solve")),
                 (solver, "_solve_projected",
                  _timed(solver._solve_projected, timers, "solve")),
+                *((FitJournal, m, _timed(getattr(FitJournal, m), timers,
+                                         "journal"))
+                  for m in ("put_block", "load_block", "load_xstats",
+                            "finish")),
                 (solver, "fit_wholebrain",
-                 _timed(solver.fit_wholebrain, timers, "fit_wholebrain"))):
+                 _timed(resume, timers, "fit_wholebrain"))):
             t0 = time.perf_counter()
             enc = BrainEncoder(cfg, device="cuda").fit(store=store)
             torch.cuda.synchronize()
@@ -2032,22 +2337,56 @@ def phase_wholebrain(card: str) -> int:
               f"{ss['gram_compile_delta']}/{ss['colblock_compile_delta']}; "
               f"row_passes_x {ss['row_passes_x']} (X cache "
               f"{ss['x_cache_bytes'] / 1e9:.3f} GB); λ={rep.best_lambda[0]:g}")
-        print(f"[wholebrain] fit {fit_s:.2f} s: stats pass "
+        print(f"[wholebrain] resumed fit {fit_s:.2f} s: stats pass "
               f"{timers['stats']:.2f} s, eighs {timers['eighs']:.2f} s, "
               f"scoring {timers['scoring']:.2f} s, Â and solve "
-              f"{timers['solve']:.2f} s, W to the card {to_card:.2f} s, "
+              f"{timers['solve']:.2f} s, journal reads and writes "
+              f"{timers['journal']:.2f} s, W to the card {to_card:.2f} s, "
               f"the rest (read stall, Â scratch and W host copies and I/O) "
               f"{other:.2f} s; {ss['bytes_staged'] / 1e9:.2f}"
               f" GB staged, read_stall {ss['read_stall_s']:.3f} s, "
               f"compute_stall {ss['compute_stall_s']:.3f} s; peak device "
               f"memory {peak / 2**30:.2f} GiB [{card}]")
+        print(f"[wholebrain] a crash after block {WB_KILL_AFTER}: the killed "
+              f"child {child['wall']:.2f} s (its fit {child['seconds']:.2f} "
+              f"s) + the resume {fit_s:.2f} s = "
+              f"{child['wall'] + fit_s:.2f} s, against the uninterrupted "
+              f"fit's {WB_UNINTERRUPTED_S} s (PR 19's run) [{card}]")
+        events = tracer.events()
+        _print_spans("wholebrain", events, card)
+        n_rb, replay_s = _span_s(events, "wholebrain.block", replayed=True)
+        n_b, block_all_s = _span_s(events, "wholebrain.block")
+        _, wb_s = _span_s(events, "fit.wholebrain")
+        _, x_s = _span_s(events, "wholebrain.xstats")
+        _, eigh_s = _span_s(events, "fit.eigh")
+        _, solve_s = _span_s(events, "fit.solve")
+        streamed_s = block_all_s - replay_s
+        in_blocks = streamed_s - timers["stats"] - timers["scoring"]
+        print(f"[wholebrain] fit.wholebrain {wb_s:.2f} s = X statistics "
+              f"replayed {x_s:.2f} s + fit.eigh {eigh_s:.2f} s + "
+              f"{n_rb} replayed blocks {replay_s:.2f} s + {n_b - n_rb} "
+              f"streamed blocks {streamed_s:.2f} s (of which stats pass and "
+              f"scoring {timers['stats'] + timers['scoring']:.2f} s, the "
+              f"rest {in_blocks:.2f} s: Â projection and its host copy, the "
+              f"scratch and journal writes, read stall) + fit.solve "
+              f"{solve_s:.2f} s + unattributed "
+              f"{wb_s - x_s - eigh_s - block_all_s - solve_s:.2f} s [{card}]")
         check(d.method == "colblocked" and d.use_pallas
               and ss["t_pad"] == WB_TARGET_BLOCK, f"decision {d}, {ss}")
-        check(ss["gram_compile_delta"] == 1 and ss["colblock_compile_delta"]
+        check(ss["resumed"] and ss["blocks_replayed"] == n_replayed
+              and ss["blocks_streamed"] == len(blocks) - n_replayed
+              and n_rb == n_replayed and n_b == len(blocks),
+              f"resume telemetry {ss}, {n_rb}/{n_b} block spans")
+        check(not jdir.exists(), "the finished fit left its journal")
+        # The resume makes no X-only pass: one new column-block signature,
+        # none for the X-only update, one pass over X (the cache rebuilt
+        # by the first streamed block).
+        check(ss["gram_compile_delta"] == 0 and ss["colblock_compile_delta"]
               == 1 and ss["row_passes_x"] == 1, f"stream stats {ss}")
         check(launches == {**dict.fromkeys(launches, 0),
-                           "xty_folds_masked": want},
-              f"launches {launches}, want {want} xty_folds_masked")
+                           "xty_folds_masked": want - want_child},
+              f"launches {launches}, want {want - want_child} "
+              f"xty_folds_masked")
         check("err" in first, "no column-block launch was captured")
         print(f"[wholebrain] first column-block launch against "
               f"ref.xty_folds_masked on its operands: max abs err "
@@ -2110,7 +2449,8 @@ def phase_wholebrain(card: str) -> int:
     finally:
         tempfile.tempdir = saved_tempdir
         shutil.rmtree(root, ignore_errors=True)
-    return launches["xty_folds_masked"]
+        shutil.rmtree(fast, ignore_errors=True)
+    return launches["xty_folds_masked"] + want_child
 
 
 def _serve_columns(card: str, path: str, W) -> None:
@@ -2181,8 +2521,10 @@ def phase_wholebrain_parity(card: str) -> None:
     from repro_torch.encoding import BrainEncoder, EncoderConfig
     from repro_torch.encoding.dispatch import resolve
     from repro_torch.encoding.estimator import EncodingReport
+    from repro_torch.resilience import FitJournal, JournalError
     from repro_torch.serving_encoders import EncoderBundle
     from repro_torch.wholebrain import BundleWriter, fit_wholebrain
+    from repro_torch.wholebrain.solver import journal_signature
 
     n, p, t = WB_SMALL["n"], WB_SMALL["p"], WB_SMALL["t"]
     rows, tb = WB_SMALL["chunk_rows"], WB_SMALL["t_block"]
@@ -2286,6 +2628,55 @@ def phase_wholebrain_parity(card: str) -> None:
             check(np.array_equal(
                 b.load_arrays(["lambda_by_target"])["lambda_by_target"],
                 kern.lambda_by_target), f"{dtype} lambda_by_target")
+        # (f) crash and resume: a child killed by KillAfterBlock right after
+        # block 1 commits, then a resume in this process, bitwise equal to
+        # the uninterrupted fits above, in both λ modes.
+        for mode, whole in (("global", kern), ("per_block", per)):
+            jdir = root / f"journal_{mode}"
+            child = _run_killed_child(f"wholebrain-parity {mode}", dict(
+                store=str(root / "store"), journal=str(jdir),
+                tmpdir=str(root / f"child_{mode}"),
+                kill_after=WB13_KILL_AFTER, route="solver", t_block=tb,
+                lambda_mode=mode, cfg=dict(chunk_rows=rows)), card)
+            shutil.rmtree(root / f"child_{mode}")
+            with _strict():
+                t1 = time.perf_counter()
+                res = fit_wholebrain(store, cfg, t_block=tb,
+                                     lambda_mode=mode, journal=str(jdir),
+                                     device="cuda", scratch_dir=str(root))
+                resume_s = time.perf_counter() - t1
+            tel = res.telemetry
+            same = {key: np.array_equal(getattr(res, key),
+                                        getattr(whole, key))
+                    for key in ("best_lambda", "cv_scores", "weights",
+                                "lambda_by_target")}
+            print(f"[wholebrain-parity] {mode}: resumed {tel['resumed']}, "
+                  f"{tel['blocks_replayed']} blocks replayed, "
+                  f"{tel['blocks_streamed']} streamed in {resume_s:.2f} s "
+                  f"(child {child['wall']:.2f} s); bitwise equal to the "
+                  f"uninterrupted fit: {same} [{card}]")
+            check(tel["resumed"]
+                  and tel["blocks_replayed"] == WB13_KILL_AFTER + 1
+                  and tel["blocks_streamed"] == 4 - WB13_KILL_AFTER - 1
+                  and not jdir.exists(), f"{mode} resume telemetry {tel}")
+            check(all(same.values()), f"{mode}: the resumed fit differs "
+                  f"from the uninterrupted one: {same}")
+        # A journal written for another blocking is refused, by path or
+        # attached.
+        other = journal_signature(store, cfg, t_block=tb // 2,
+                                  device="cuda")
+        FitJournal.attach(str(root / "journal_other"), other)
+        for journal in (str(root / "journal_other"),
+                        FitJournal.attach(str(root / "journal_other"),
+                                          other)):
+            try:
+                fit_wholebrain(store, cfg, t_block=tb, journal=journal,
+                               device="cuda")
+            except JournalError as e:
+                print(f"[wholebrain-parity] a journal of t_block={tb // 2} "
+                      f"refused: {str(e)[:100]}…")
+            else:
+                check(False, "a journal of another t_block was accepted")
         print(f"[wholebrain-parity] n={n} p={p} t={t} chunk_rows={rows} "
               f"t_block={tb} ({len(kern.block_bounds)} blocks, tail "
               f"{t - 3 * tb}): kernel tier = plain tier (λ "
@@ -2498,6 +2889,7 @@ def _serving_bundles(root: Path, p: int, t: int) -> list[str]:
 def phase_serving(card: str) -> None:
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.core import complexity
     from repro_torch.kernels import ops
     from repro_torch.serving_encoders import (EncoderBundle,
@@ -2539,10 +2931,11 @@ def phase_serving(card: str) -> None:
         fe = FleetFrontend(svc, max_pending_rows=8 * big)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        results, rejections = fleet.replay(fe, reqs)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
+        with _strict():                 # the wave programs' windows armed
+            t0 = time.perf_counter()
+            results, rejections = fleet.replay(fe, reqs)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         ref_reg, ref_svc = stack()
         t0 = time.perf_counter()
@@ -2603,6 +2996,55 @@ def phase_serving(card: str) -> None:
               f"max|Δ| vs float64 host product {dp:.3e} (rtol 1e-4, atol "
               f"2e-4); max|Δr| vs ops.pearson_r {dr:.3e} (atol "
               f"{PEARSON_TOL:g})")
+        # The same replay on a fresh stack under the tracer (and strict):
+        # where the host time goes, and the counters against ServiceStats.
+        t_reg, t_svc = stack()
+        t_fe = FleetFrontend(t_svc, max_pending_rows=8 * big)
+        before = obs.snapshot()["counters"]
+        with _strict(), _traced() as tracer:
+            t0 = time.perf_counter()
+            traced, _ = fleet.replay(t_fe, reqs)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        events = tracer.events()
+        _print_spans("serving", events, card)
+        c = _counter_deltas(before, "")
+        t_st = t_svc.stats.to_dict()
+        waves_c = sum(v for k, v in c.items() if k.startswith("waves{"))
+        got = {"waves": waves_c, "wave_rows": c.get("wave_rows", 0.0),
+               "wave_pad_rows": c.get("wave_pad_rows", 0.0),
+               "admitted_rows": c.get("admitted_rows", 0.0)}
+        want = {"waves": t_st["waves"], "wave_rows": t_st["rows"],
+                "wave_pad_rows": t_st["pad_rows"],
+                "admitted_rows": t_st["rows"]}
+        split = {name: _span_s(events, name)[1] for name in (
+            "fleet.flush", "serve.wave.build", "serve.wave.execute",
+            "registry.load")}
+        inside = split["serve.wave.build"] + split["serve.wave.execute"] \
+            + split["registry.load"]
+        print(f"[serving] traced replay {traced_s:.3f} s = "
+              f"{n_rows / traced_s:,.0f} rows/s (untraced {serve_s:.3f} s): "
+              f"fleet.flush {split['fleet.flush']:.3f} s = serve.wave.build "
+              f"{split['serve.wave.build']:.3f} s (numpy packing, copies to "
+              f"the card) + serve.wave.execute "
+              f"{split['serve.wave.execute']:.3f} s (the products and the "
+              f"Pearson row loop enqueued; an unscored wave is not waited "
+              f"for) + registry.load {split['registry.load']:.3f} s + the "
+              f"rest {split['fleet.flush'] - inside:.3f} s (request checks, "
+              f"grouping, predictions and r to the host); counters {got} "
+              f"[{card}]")
+        check(got == want, f"obs counters {got} != ServiceStats {want}")
+        for i, (a, b) in enumerate(zip(traced, results)):
+            check(np.array_equal(a.predictions, b.predictions)
+                  and (a.pearson_r is None) == (b.pearson_r is None)
+                  and (a.pearson_r is None
+                       or np.array_equal(a.pearson_r, b.pearson_r)),
+                  f"request {i}: the traced serve differs")
+        execute_ms = {}
+        for rows in SERVE_BUCKETS:
+            n_e, e_s = _span_s(events, "serve.wave.execute", rows=rows)
+            execute_ms[rows] = 1e3 * e_s / max(n_e, 1)
+        del t_reg, t_svc, t_fe, traced
         # A row's bits at every bucket of the ladder and every offset.
         e = reg.get(names[0], wave_rows=big, score_slots=SERVE_SLOTS)
         args = (e.weights, e.mu_x, e.sd_x, e.mu_y, e.sd_y)
@@ -2643,7 +3085,10 @@ def phase_serving(card: str) -> None:
             print(f"[serving] bucket {rows}: unscored wave {plain_ms:.3f} "
                   f"ms, scored wave {mixed_ms:.3f} ms of which the row loop "
                   f"of Pearson sums {chain_ms:.3f} ms "
-                  f"({100 * chain_ms / mixed_ms:.0f}%) [{card}]")
+                  f"({100 * chain_ms / mixed_ms:.0f}%) (CUDA events); the "
+                  f"replay's serve.wave.execute spans {execute_ms[rows]:.3f} "
+                  f"ms a wave, scored and unscored (host clock, the enqueue "
+                  f"where nothing waits) [{card}]")
         del reg, svc, fe, ref_reg, ref_svc, results, alone, e, args
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2652,22 +3097,25 @@ def phase_serving(card: str) -> None:
 
 def _selected(argv: list[str]) -> set[int] | None:
     """``--only 14,16`` runs phase 1 and the listed independent phases
-    (12 to 16) and prints no result lines: a quick check while working on
-    them.  With no arguments every phase runs."""
+    (6 and 12 to 16) and prints no result lines: a quick check while
+    working on them.  With no arguments every phase runs."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
-                         "(N in 12..16)")
+                         "(N in 6, 12..16)")
     only = {int(v) for v in argv[1].split(",")}
-    if not only <= {12, 13, 14, 15, 16}:
-        raise SystemExit(f"--only takes phases 12 to 16, got {sorted(only)}")
+    if not only <= {6, 12, 13, 14, 15, 16}:
+        raise SystemExit(f"--only takes phases 6 and 12 to 16, got "
+                         f"{sorted(only)}")
     return only
 
 
 def main(argv: list[str]) -> int:
     import torch
 
+    if argv[:1] == ["--kill-child"]:
+        return _kill_child(argv[1])
     only = _selected(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2676,7 +3124,8 @@ def main(argv: list[str]) -> int:
     env = phase_env()
     card = env["card"]
     if only is not None:
-        for n, phase in ((12, phase_wholebrain), (13, phase_wholebrain_parity),
+        for n, phase in ((6, phase_streamed), (12, phase_wholebrain),
+                         (13, phase_wholebrain_parity),
                          (14, phase_mor), (15, phase_banded),
                          (16, phase_serving)):
             if n in only:

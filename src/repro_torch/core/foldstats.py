@@ -32,6 +32,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import as_tensor, host_view, resolve_device
 from repro_torch.kernels import ops, ref
 
@@ -137,24 +138,30 @@ class _FixedShapeUpdate:
     ``index_add_`` sums duplicate indices where ``G[slot_fold] += GC``
     would keep only the last.
 
-    PyTorch runs eagerly, so nothing is compiled; ``compile_count`` counts
-    the distinct fixed-shape signatures ``(chunk_rows, p, q, s, dtype,
-    use_pallas)`` the update has seen — 1 for a fresh stream, 0 for a
-    repeat — which is the number the reference's traces would be.
+    PyTorch runs eagerly, so nothing is compiled; ``compiles`` (an
+    ``obs.CompileCounter``) is marked once per distinct fixed-shape
+    signature ``(chunk_rows, p, q, s, dtype, use_pallas)`` the update sees
+    — 1 for a fresh stream, 0 for a repeat — which is the number the
+    reference's traces would be.  Under ``REPRO_OBS_STRICT=1`` a new
+    signature inside an ``expect`` window raises before the update runs.
     """
 
     def __init__(self) -> None:
+        self.compiles = obs.CompileCounter("foldstats.chunk_update")
         self._seen: set[tuple] = set()
 
     @property
     def compile_count(self) -> int:
-        return len(self._seen)
+        return self.compiles.count
 
     def __call__(self, stats: FoldStats, X: torch.Tensor, Y: torch.Tensor,
                  onehot: torch.Tensor, slot_fold: torch.Tensor, *,
                  use_pallas: bool = False) -> FoldStats:
-        self._seen.add((X.shape[0], X.shape[1], Y.shape[1], onehot.shape[1],
-                        X.dtype, Y.dtype, use_pallas))
+        sig = (X.shape[0], X.shape[1], Y.shape[1], onehot.shape[1], X.dtype,
+               Y.dtype, use_pallas)
+        if sig not in self._seen:
+            self.compiles.mark()
+            self._seen.add(sig)
         p = X.shape[1]
         dt = torch.promote_types(X.dtype, Y.dtype)
         Xd = X.to(dt).contiguous()
@@ -202,8 +209,16 @@ def chunk_update_compile_count() -> int:
     """Distinct fixed-shape signatures the chunk update has seen
     (monotonic, process-wide).  Take a delta around a stream: 1 for a
     fresh ``(chunk_rows, p, q, s, dtype, use_pallas)`` signature, 0 for a
-    repeat, regardless of fold alignment or ragged tails."""
-    return _FIXED_UPDATE.compile_count
+    repeat, regardless of fold alignment or ragged tails.  (Alias over
+    ``chunk_update_compiles().count``.)"""
+    return _FIXED_UPDATE.compiles.count
+
+
+def chunk_update_compiles() -> "obs.CompileCounter":
+    """The chunk update's :class:`repro_torch.obs.CompileCounter` — open an
+    ``expect(at_most=...)`` window around a stream to arm the recompile
+    sentinel (raises at the new signature under ``REPRO_OBS_STRICT=1``)."""
+    return _FIXED_UPDATE.compiles
 
 
 class FoldStatsAccumulator:
@@ -333,18 +348,6 @@ class FoldStatsAccumulator:
         return self._stats
 
 
-def _consume(acc: FoldStatsAccumulator, chunks) -> FoldStats:
-    """Feed every chunk to ``acc``; close a closable source on every exit
-    path (a prefetching reader stops its thread and frees its buffers)."""
-    try:
-        for X_chunk, Y_chunk in chunks:
-            acc.update(X_chunk, Y_chunk)
-    finally:
-        if hasattr(chunks, "close"):
-            chunks.close()
-    return acc.finalize()
-
-
 def compute_chunked(chunks: Iterable, n_total: int, n_folds: int, *,
                     chunk_rows: int | None = None,
                     use_pallas: bool = False,
@@ -359,7 +362,19 @@ def compute_chunked(chunks: Iterable, n_total: int, n_folds: int, *,
     """
     acc = FoldStatsAccumulator(n_total, n_folds, chunk_rows=chunk_rows,
                                use_pallas=use_pallas, device=device)
-    return _consume(acc, chunks)
+    # Recompile sentinel: one fixed shape → at most one new signature for
+    # the whole stream (zero when the signature is already known).  Each
+    # span closes after ``update``'s stream fence, so it measures compute.
+    with _FIXED_UPDATE.compiles.expect(at_most=1):
+        try:
+            for X_chunk, Y_chunk in chunks:
+                with obs.span("fit.foldstats.chunk_update",
+                              rows=int(X_chunk.shape[0])):
+                    acc.update(X_chunk, Y_chunk)
+        finally:
+            if hasattr(chunks, "close"):
+                chunks.close()
+    return acc.finalize()
 
 
 def _combine_pair(a: FoldStats, b: FoldStats) -> FoldStats:
@@ -432,12 +447,25 @@ def compute_sharded_chunked(shard_streams: Sequence[Iterable], n_total: int,
             "(multi-device)")
     del data_axis                       # names the mesh axis; no mesh here
     ranges = shard_row_ranges(n_total, len(shard_streams))
-    parts = [
-        _consume(FoldStatsAccumulator(n_total, n_folds, row_start=lo,
-                                      row_stop=hi, chunk_rows=chunk_rows,
-                                      use_pallas=use_pallas, device=device),
-                 stream)
-        for (lo, hi), stream in zip(ranges, shard_streams)]
+    parts: list[FoldStats] = []
+    # Sentinel window: with chunk_rows pinned every shard shares ONE
+    # signature; left to infer, ragged shard windows may pin different
+    # first-chunk shapes — allow one per shard.
+    with _FIXED_UPDATE.compiles.expect(
+            at_most=1 if chunk_rows else len(shard_streams)):
+        for s, ((lo, hi), stream) in enumerate(zip(ranges, shard_streams)):
+            acc = FoldStatsAccumulator(n_total, n_folds, row_start=lo,
+                                       row_stop=hi, chunk_rows=chunk_rows,
+                                       use_pallas=use_pallas, device=device)
+            with obs.span("fit.foldstats.shard", shard=s, row_lo=lo,
+                          row_hi=hi):
+                try:
+                    for X_chunk, Y_chunk in stream:
+                        acc.update(X_chunk, Y_chunk)
+                finally:
+                    if hasattr(stream, "close"):
+                        stream.close()
+            parts.append(acc.finalize())
     return combine(parts)
 
 

@@ -22,7 +22,9 @@ from typing import Literal, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import foldstats
+from repro_torch.device import sync_if_traced
 from repro_torch.kernels import ops, ref
 
 # The paper's λ grid (§2.2.4).
@@ -335,21 +337,28 @@ def ridge_cv_from_stats(stats: foldstats.FoldStats,
                          "statistics")
     p = stats.G.shape[1]
     device = stats.G.device
-    eye = cfg.jitter * torch.eye(p, dtype=torch.float32, device=device)
-    lams = _lambda_grid(cfg, device)
     per_lambda_scores = []
-    for f in range(stats.n_folds):
-        G_tr, C_tr = stats.train(f)
-        evals, Q = torch.linalg.eigh(G_tr + eye)
-        del G_tr
-        per_lambda_scores.append(foldstats.validation_scores_from_stats(
-            stats, f, Q, evals, C_tr, lams, cfg.scoring))
-        del Q
-    cv_scores = torch.stack(per_lambda_scores).mean(0)              # (r,)
-    best = torch.argmax(cv_scores)
-    evals, Q = torch.linalg.eigh(stats.G_total + eye)
-    factors = RidgeFactors(basis=Q, evals=evals, primal=True)
-    W = solve(factors, stats.C_total, lams[best])
+    # The eigh/solve spans force their outputs only while a tracer is
+    # installed (``sync_if_traced``), so the recorded durations are
+    # compute, not the enqueue; untraced, nothing is synchronised here.
+    with obs.span("fit.eigh", folds=stats.n_folds, p=p):
+        eye = cfg.jitter * torch.eye(p, dtype=torch.float32, device=device)
+        lams = _lambda_grid(cfg, device)
+        for f in range(stats.n_folds):
+            G_tr, C_tr = stats.train(f)
+            evals, Q = torch.linalg.eigh(G_tr + eye)
+            del G_tr
+            per_lambda_scores.append(foldstats.validation_scores_from_stats(
+                stats, f, Q, evals, C_tr, lams, cfg.scoring))
+            del Q
+        cv_scores = torch.stack(per_lambda_scores).mean(0)          # (r,)
+        best = torch.argmax(cv_scores)
+        sync_if_traced(device)
+    with obs.span("fit.solve", p=p):
+        evals, Q = torch.linalg.eigh(stats.G_total + eye)
+        factors = RidgeFactors(basis=Q, evals=evals, primal=True)
+        W = solve(factors, stats.C_total, lams[best])
+        sync_if_traced(device)
     return RidgeCVResult(weights=W, best_lambda=lams[best], best_index=best,
                          cv_scores=cv_scores)
 

@@ -38,12 +38,12 @@ import json
 import os
 import queue
 import threading
-import time
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.data.fmri import SubjectSpec
 from repro_torch.device import host_view
 from repro_torch.resilience import cleanup
@@ -127,7 +127,11 @@ class PrefetchStats:
     ``read_stall_s`` is consumer time blocked on an empty queue (the disk
     reader was the bottleneck); ``compute_stall_s`` is reader time blocked
     on a full queue (compute was the bottleneck — the overlap is working).
-    Both are ``time.perf_counter`` intervals.
+
+    Every field is DERIVED from the prefetcher's observability spans
+    (``prefetch.stage`` / ``prefetch.wait`` / ``prefetch.compute_stall``
+    via ``obs.timed``) — the stats and a recorded trace are two views of
+    the same measurements, never parallel bookkeeping.
     """
 
     chunks: int = 0
@@ -137,7 +141,7 @@ class PrefetchStats:
 
     def to_dict(self) -> dict:
         """Flat snapshot in the reference's schema (``repro.obs/v1``)."""
-        return {"schema": "repro.obs/v1", "kind": "prefetch",
+        return {"schema": obs.SCHEMA_VERSION, "kind": "prefetch",
                 "chunks": int(self.chunks),
                 "bytes_staged": int(self.bytes_staged),
                 "read_stall_s": float(self.read_stall_s),
@@ -195,6 +199,13 @@ class ChunkPrefetcher:
         self._depth = depth
         self._pin = pin_memory
         self.stats = PrefetchStats()
+        # Hoisted global-metric instruments (one dict lookup each, here,
+        # instead of one per staged chunk on the hot path).
+        _m = obs.get_metrics()
+        self._m_bytes = _m.counter("bytes_staged")
+        self._m_chunks = _m.counter("chunks_staged")
+        self._m_read_stall = _m.counter("read_stall_s")
+        self._m_compute_stall = _m.counter("compute_stall_s")
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -233,21 +244,26 @@ class ChunkPrefetcher:
     def _put(self, item) -> bool:
         """Stop-aware bounded put; returns False when closed mid-stream.
         Time spent blocked here is compute stall (queue full = the
-        consumer is behind)."""
+        consumer is behind) — one ``prefetch.compute_stall`` span, from
+        which ``stats.compute_stall_s`` is derived."""
         try:
             self._queue.put_nowait(item)
             return True
         except queue.Full:
             pass
-        t0 = time.perf_counter()
-        while not self._stop.is_set():
-            try:
-                self._queue.put(item, timeout=0.05)
-            except queue.Full:
-                continue
-            self.stats.compute_stall_s += time.perf_counter() - t0
-            return True
-        return False
+        with obs.timed("prefetch.compute_stall") as t:
+            ok = False
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(item, timeout=0.05)
+                    ok = True
+                    break
+                except queue.Full:
+                    continue
+        if ok:
+            self.stats.compute_stall_s += t.dur_s
+            self._m_compute_stall.inc(t.dur_s)
+        return ok
 
     def _reader(self) -> None:
         """Walk the synchronous iterator, staging each chunk into the pool.
@@ -264,6 +280,7 @@ class ChunkPrefetcher:
         policy = self._store.fault_policy
         lo, hi = (self._row_range if self._row_range is not None
                   else (0, self._store.n_total))
+        metrics = obs.get_metrics()
         seq = 0
         attempt = 0
         burst_start = None
@@ -278,12 +295,19 @@ class ChunkPrefetcher:
                             return
                         bx, by = self._bufs[seq % len(self._bufs)]
                         m = X_c.shape[0]
-                        np.copyto(bx[:m], X_c)
-                        np.copyto(by[:m], Y_c)
+                        # The staging copy (memmap page-in + dtype
+                        # conversion) is one ``prefetch.stage`` span;
+                        # bytes_staged derives from the same region.
+                        with obs.timed("prefetch.stage", chunk=seq) as t:
+                            np.copyto(bx[:m], X_c)
+                            np.copyto(by[:m], Y_c)
+                            staged = bx[:m].nbytes + by[:m].nbytes
+                            t.set(bytes=staged)
                         vx, vy = bx[:m].view(), by[:m].view()
                         vx.flags.writeable = False
                         vy.flags.writeable = False
-                        self.stats.bytes_staged += vx.nbytes + vy.nbytes
+                        self.stats.bytes_staged += staged
+                        self._m_bytes.inc(staged)
                         if not self._put((vx, vy)):
                             return
                         seq += 1
@@ -302,10 +326,18 @@ class ChunkPrefetcher:
                     out_of_time = (policy.deadline_s is not None and
                                    now - burst_start >= policy.deadline_s)
                     if attempt >= policy.max_attempts or out_of_time:
+                        metrics.counter("io_giveups",
+                                        op="prefetch.read").inc()
+                        obs.instant("retry.giveup", op="prefetch.read",
+                                    attempt=attempt)
                         raise
+                    metrics.counter("io_retries", op="prefetch.read").inc()
                     delay = policy.delay_for("prefetch.read", attempt)
-                    if delay > 0.0:
-                        policy.sleep(delay)
+                    with obs.span("retry.backoff", op="prefetch.read",
+                                  attempt=attempt,
+                                  delay_s=round(delay, 6)):
+                        if delay > 0.0:
+                            policy.sleep(delay)
             self._put(self._SENTINEL)
         except BaseException as exc:                 # noqa: BLE001
             self._put(exc)
@@ -315,9 +347,12 @@ class ChunkPrefetcher:
             raise StopIteration
         if self._thread is None:
             self._start()
-        t0 = time.perf_counter()
-        item = self._queue.get()
-        self.stats.read_stall_s += time.perf_counter() - t0
+        # Consumer-side block on an empty queue: one ``prefetch.wait``
+        # span, from which ``stats.read_stall_s`` is derived.
+        with obs.timed("prefetch.wait") as t:
+            item = self._queue.get()
+        self.stats.read_stall_s += t.dur_s
+        self._m_read_stall.inc(t.dur_s)
         if item is self._SENTINEL:
             self.close()
             raise StopIteration
@@ -325,6 +360,8 @@ class ChunkPrefetcher:
             self.close()
             raise item
         self.stats.chunks += 1
+        self._m_chunks.inc()
+        obs.instant("prefetch.yield", chunk=self.stats.chunks - 1)
         return item
 
     def close(self) -> None:

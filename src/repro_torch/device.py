@@ -10,6 +10,8 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
     """``None`` → ``cuda`` (raises without a CUDA device); else as given."""
@@ -72,3 +74,16 @@ def as_tensor(a, device: torch.device) -> torch.Tensor:
     # Never non_blocking towards the host: the tensor could be read before
     # its copy lands.
     return t.to(device, non_blocking=to_cuda)
+
+
+def sync_if_traced(device: torch.device) -> None:
+    """Wait for the card's queued work while a tracer is installed.
+
+    PyTorch returns before the card finishes, so a span that closes on the
+    host clock measures the enqueue unless the work is forced.  The
+    reference forces its ``fit.eigh``/``fit.solve`` outputs only under
+    tracing; this is the port's one place that does the same.  Untraced,
+    or on the CPU, it does nothing.
+    """
+    if device.type == "cuda" and obs.current() is not None:
+        torch.cuda.synchronize(device)

@@ -28,6 +28,49 @@ per feature band) are explicit solver choices:
 A saved encoder is served through ``repro_torch.serving_encoders``
 (``EncoderRegistry`` → ``EncoderService``).  Everything runs on CUDA
 unless ``device="cpu"`` is passed.
+
+Observing a fit and a fleet
+---------------------------
+Every tier above is permanently instrumented through ``repro_torch.obs``
+— spans, metrics and recompile sentinels — at no cost until you opt in
+(with no tracer installed a span site is one module attribute load):
+
+* **Tracing**: install the process-global tracer around any code::
+
+      from repro_torch import obs
+      tracer = obs.install()
+      enc = BrainEncoder(device_memory_budget=1, chunk_rows=4096)
+      enc.fit(store=store)            # fit.dispatch/stats/eigh/solve spans
+      obs.write_trace(tracer, "fit.jsonl")    # .json → open in Perfetto
+      obs.uninstall()
+
+  ``python -m repro_torch.launch.obs_report fit.jsonl --assert-coverage
+  0.95`` renders the per-phase time/bytes table and gates the share of
+  the fit root attributed to its phase children.  On the card, only the
+  ``fit.eigh``/``fit.solve`` spans wait for the work they enqueued, and
+  only while a tracer is installed.
+* **Metrics**: ``obs.snapshot()`` renders the process-global counters
+  (``compiles{tier=...}``, ``bytes_staged``, ``io_retries{op=...}``,
+  ``waves``, ``wave_rows``, ``tenant_rows{tenant=...}``,
+  ``registry_hits``/``loads``/``evictions``, fleet admission outcomes)
+  into one schema'd dict (``repro.obs/v1``).  ``stream_stats_``,
+  ``ServiceStats.to_dict()`` and ``PrefetchStats.to_dict()`` carry the
+  same schema marker.
+* **Sentinels**: under ``REPRO_OBS_STRICT=1`` every fixed-shape contract
+  (the chunked fold update, the whole-brain column-block update, the
+  serving wave programs) raises ``obs.RecompileError`` at the update that
+  sees a signature beyond its expectation window.
+
+Surviving failures
+------------------
+``repro_torch.resilience`` makes a killed whole-brain fit resumable: pass
+``journal=`` (a directory) to ``wholebrain.fit_wholebrain`` and the
+X-statistics pass and every finished column block are committed to an
+atomic-rename ledger; re-running the same call after a crash replays them
+and streams only the rest, with λ and W bitwise equal to an uninterrupted
+fit.  ``RunStore.open(root, fault_policy=FaultPolicy(...))`` retries
+transient shard-read faults, and ``resilience.faultsim`` injects them
+deterministically.
 """
 from repro_torch.encoding import dispatch, pipeline  # noqa: F401
 from repro_torch.encoding.config import EncoderConfig  # noqa: F401

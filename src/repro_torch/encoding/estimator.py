@@ -20,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import banded, foldstats, mor, ridge, scoring
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.encoding.config import EncoderConfig
@@ -146,29 +147,42 @@ class BrainEncoder:
         shards — ``(n, p)`` is never materialised — or ``"colblocked"``
         when the target axis must be blocked too; otherwise the store is
         loaded once and routed through the ordinary dispatch.
+
+        The fit runs under a ``fit`` root span (children ``fit.dispatch``,
+        then ``fit.solve``, or the streamed paths' ``fit.stats`` /
+        ``fit.finalize`` / ``fit.eigh`` / ``fit.solve``, or
+        ``fit.wholebrain``).
         """
-        if store is not None:
-            if X is not None or Y is not None:
-                raise ValueError("pass either (X, Y) or store=, not both")
-            self._check_store_folds(store)
-            n, p, t = store.shape
-            decision = resolve(self.config, n, p, t, 1, device=self.device)
-            if decision.method == "colblocked":
-                return self._fit_store_colblocked(store, decision,
-                                                  chunk_rows)
-            if decision.method == "chunked":
-                return self._fit_store_chunked(store, decision, chunk_rows)
-            X, Y = store.load()
-        if X is None or Y is None:
-            raise ValueError("fit() needs (X, Y) arrays or store=")
-        X = as_tensor(X, self.device)
-        Y = as_tensor(Y, self.device)
-        n, p = X.shape
-        t = Y.shape[1]
-        decision = resolve(self.config, n, p, t, 1, device=self.device)
-        fitter = getattr(self, f"_fit_{decision.solver}")
-        self.report_ = fitter(X, Y, decision)
-        return self
+        with obs.span("fit", mode="store" if store is not None
+                      else "arrays"):
+            if store is not None:
+                if X is not None or Y is not None:
+                    raise ValueError("pass either (X, Y) or store=, not both")
+                self._check_store_folds(store)
+                n, p, t = store.shape
+                with obs.span("fit.dispatch", n=n, p=p, t=t):
+                    decision = resolve(self.config, n, p, t, 1,
+                                       device=self.device)
+                if decision.method == "colblocked":
+                    return self._fit_store_colblocked(store, decision,
+                                                      chunk_rows)
+                if decision.method == "chunked":
+                    return self._fit_store_chunked(store, decision,
+                                                   chunk_rows)
+                X, Y = store.load()
+            if X is None or Y is None:
+                raise ValueError("fit() needs (X, Y) arrays or store=")
+            X = as_tensor(X, self.device)
+            Y = as_tensor(Y, self.device)
+            n, p = X.shape
+            t = Y.shape[1]
+            with obs.span("fit.dispatch", n=n, p=p, t=t):
+                decision = resolve(self.config, n, p, t, 1,
+                                   device=self.device)
+            fitter = getattr(self, f"_fit_{decision.solver}")
+            with obs.span("fit.solve", solver=decision.solver):
+                self.report_ = fitter(X, Y, decision)
+            return self
 
     def fit_chunks(self, chunks, n_total: int | None = None,
                    chunk_rows: int | None = None) -> "BrainEncoder":
@@ -200,14 +214,17 @@ class BrainEncoder:
                 pin_memory=self.device.type == "cuda")
         if n_total is None:
             raise ValueError("fit_chunks needs n_total for iterator sources")
-        compiles0 = foldstats.chunk_update_compile_count()
-        stats = foldstats.compute_chunked(
-            chunks, n_total, self.config.n_folds, chunk_rows=chunk_rows,
-            use_pallas=self.config.resolve_use_pallas(self.device),
-            device=self.device)
-        self._record_stream_stats([stream] if stream is not None else [],
-                                  compiles0)
-        return self._fit_from_stats(stats, n_total)
+        with obs.span("fit", mode="chunks"):
+            compiles0 = foldstats.chunk_update_compile_count()
+            with obs.span("fit.stats", n=n_total):
+                stats = foldstats.compute_chunked(
+                    chunks, n_total, self.config.n_folds,
+                    chunk_rows=chunk_rows,
+                    use_pallas=self.config.resolve_use_pallas(self.device),
+                    device=self.device)
+            self._record_stream_stats(
+                [stream] if stream is not None else [], compiles0)
+            return self._fit_from_stats(stats, n_total)
 
     def _check_store_folds(self, store) -> None:
         """The manifest's fold split is part of the store's data contract:
@@ -240,9 +257,12 @@ class BrainEncoder:
         # Statistics-based CV scores lose f32 precision roughly
         # quadratically in |ȳ|/σ_y; refuse clearly pathological
         # un-standardized targets instead of returning corrupted scores.
-        mu = stats.ysum.sum(0).cpu().numpy() / n_total
-        var = stats.ysq.sum(0).cpu().numpy() / max(n_total - 1, 1)
-        ratio = float(np.max(np.abs(mu) / np.sqrt(var + 1e-12)))
+        # The host pulls below wait for the accumulation's queued tail, so
+        # under tracing this span is where the streamed compute drains.
+        with obs.span("fit.finalize", n=n_total, t=t):
+            mu = stats.ysum.sum(0).cpu().numpy() / n_total
+            var = stats.ysq.sum(0).cpu().numpy() / max(n_total - 1, 1)
+            ratio = float(np.max(np.abs(mu) / np.sqrt(var + 1e-12)))
         if ratio > 1e3:
             raise ValueError(
                 f"fit_chunks: target mean/std ratio {ratio:.0f} is too "
@@ -264,7 +284,8 @@ class BrainEncoder:
                            chunk_rows: int | None) -> "BrainEncoder":
         """Streamed fit on one device (one row shard): the store's rows
         stream (background-prefetched when ``config.prefetch``, into pinned
-        buffers on CUDA) through the fixed-shape chunk update."""
+        buffers on CUDA) through the fixed-shape chunk update, as the
+        reference's sharded pass with one shard."""
         self._check_chunkable()
         n_total = store.shape[0]
         chunk_rows = chunk_rows or self.config.chunk_rows
@@ -272,9 +293,12 @@ class BrainEncoder:
                                    prefetch_depth=self.config.prefetch_depth,
                                    pin_memory=self.device.type == "cuda")
         compiles0 = foldstats.chunk_update_compile_count()
-        stats = foldstats.compute_chunked(
-            stream, n_total, self.config.n_folds, chunk_rows=chunk_rows,
-            use_pallas=decision.use_pallas, device=self.device)
+        with obs.span("fit.stats", n=n_total, shards=1,
+                      chunk_rows=chunk_rows):
+            stats = foldstats.compute_sharded_chunked(
+                [stream], n_total, self.config.n_folds,
+                chunk_rows=chunk_rows, use_pallas=decision.use_pallas,
+                device=self.device)
         self._record_stream_stats([stream], compiles0)
         return self._fit_from_stats(stats, n_total, decision)
 
@@ -300,7 +324,7 @@ class BrainEncoder:
             best_lambda=res.best_lambda,
             cv_scores=res.cv_scores, lambdas=self.config.lambdas,
             decision=decision)
-        self.stream_stats_ = {"schema": "repro.obs/v1", "kind": "stream",
+        self.stream_stats_ = {"schema": obs.SCHEMA_VERSION, "kind": "stream",
                               "prefetch": bool(self.config.prefetch),
                               **res.telemetry,
                               "compile_count":
@@ -310,7 +334,7 @@ class BrainEncoder:
     def _record_stream_stats(self, streams, compiles_before: int) -> None:
         """Aggregate per-stream prefetch telemetry into ``stream_stats_``
         (the reference's flat snapshot schema)."""
-        agg = {"schema": "repro.obs/v1", "kind": "stream",
+        agg = {"schema": obs.SCHEMA_VERSION, "kind": "stream",
                "prefetch": bool(self.config.prefetch), "chunks": 0,
                "bytes_staged": 0, "read_stall_s": 0.0,
                "compute_stall_s": 0.0,

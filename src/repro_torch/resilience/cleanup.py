@@ -8,8 +8,9 @@ leaves that entry behind; no manifest references it, so it is garbage.
 
 :func:`reap_stale_staging` deletes such entries **age-gated**: only entries
 whose mtime is older than ``max_age_s`` go (a live concurrent writer's
-staging is younger than that).  The reference's ``staging_reaped`` counter
-and ``cleanup.reap`` marker are not carried over yet.
+staging is younger than that), and every reaped entry is counted in the
+``staging_reaped`` obs counter plus an ``obs.instant("cleanup.reap")``
+marker.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import fnmatch
 import os
 import shutil
 import time
+
+from repro_torch import obs
 
 __all__ = ["STAGING_PATTERNS", "reap_stale_staging"]
 
@@ -63,4 +66,7 @@ def reap_stale_staging(root: str, *, max_age_s: float = 3600.0,
         except OSError:
             continue
         reaped.append(name)
+        obs.instant("cleanup.reap", path=name, age_s=round(age, 1))
+    if reaped:
+        obs.get_metrics().counter("staging_reaped").inc(len(reaped))
     return reaped

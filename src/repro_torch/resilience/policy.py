@@ -1,13 +1,16 @@
-"""Transient-fault retry policy for the streaming tier.
+"""Transient-fault retry policy for the streaming and serving tiers.
 
 Port of ``repro/resilience/policy.py``.  A :class:`FaultPolicy` describes
 how to retry an I/O operation that failed transiently: how many attempts,
 how the backoff grows, how much deterministic jitter to add, and an
 optional per-op wall-clock deadline.  :func:`retry_call` executes a
 callable under a policy, classifying each exception as transient (retry)
-or permanent (raise immediately).  The reference's ``io_retries`` /
-``io_giveups`` counters and ``retry.backoff`` spans are not carried over
-yet.
+or permanent (raise immediately), and publishes every retry and give-up
+through ``repro_torch.obs``:
+
+* counter ``io_retries{op=...}`` — one per retried attempt
+* counter ``io_giveups{op=...}`` — one per exhausted/permanent failure
+* span ``retry.backoff`` — wraps each backoff sleep (attrs: op, attempt)
 
 Determinism: the jitter is a pure function of ``(seed, op, attempt)``
 (CRC32-derived), never ``random``/wall clock, so two processes with the
@@ -26,6 +29,8 @@ import time
 import zlib
 from dataclasses import dataclass, field, replace
 from typing import Callable
+
+from repro_torch import obs
 
 __all__ = [
     "FaultPolicy", "TransientFault", "RetryGiveUp", "retry_call",
@@ -133,6 +138,7 @@ def retry_call(fn: Callable, policy: FaultPolicy | None, op: str,
         policy = NO_RETRY
     start = policy.clock()
     attempt = 0
+    metrics = obs.get_metrics()
     while True:
         attempt += 1
         try:
@@ -144,7 +150,12 @@ def retry_call(fn: Callable, policy: FaultPolicy | None, op: str,
             out_of_time = (policy.deadline_s is not None
                            and policy.clock() - start >= policy.deadline_s)
             if out_of_attempts or out_of_time:
+                metrics.counter("io_giveups", op=op).inc()
+                obs.instant("retry.giveup", op=op, attempt=attempt)
                 raise
+            metrics.counter("io_retries", op=op).inc()
             delay = policy.delay_for(op, attempt)
-            if delay > 0.0:
-                policy.sleep(delay)
+            with obs.span("retry.backoff", op=op, attempt=attempt,
+                          delay_s=round(delay, 6)):
+                if delay > 0.0:
+                    policy.sleep(delay)

@@ -17,7 +17,11 @@ Port of ``repro/serving_encoders/fleet.py``:
   per tenant in ``ServiceStats``); ``flush`` drains the queue through one
   mixed-wave ``serve`` call, and re-admits the batch if its worker is lost.
 
-The reference's metrics counters and instants are not carried over.
+Fleet events go through ``repro_torch.obs`` as in the reference: the
+``fleet.flush`` span, the ``fleet.admit`` / ``fleet.reject`` /
+``fleet.replay`` / ``fleet.lease_expired`` / ``fleet.lock_timeout``
+instants, and the counters ``admitted_rows``, ``rejected_requests``,
+``requests_replayed`` and ``lease_expirations``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.serving_encoders.registry import EncoderRegistry
 from repro_torch.serving_encoders.service import (
     EncoderService, PredictRequest, PredictResult, ServiceError,
@@ -106,6 +111,7 @@ class ResidencyMap:
                     except OSError:
                         if clock() >= deadline:
                             os.close(_self.fd)
+                            obs.instant("fleet.lock_timeout", path=lockpath)
                             raise FleetError(
                                 f"could not acquire residency lock "
                                 f"{lockpath} within {timeout}s — a peer "
@@ -188,6 +194,9 @@ class ResidencyMap:
                 del data["workers"][w]
             if dead:
                 self._write(data)
+        for w in dead:
+            obs.get_metrics().counter("lease_expirations").inc()
+            obs.instant("fleet.lease_expired", worker=w)
         return dead
 
     def retire(self, worker: str) -> None:
@@ -331,6 +340,9 @@ class FleetFrontend:
         if self._pending_rows + rows > self.max_pending_rows:
             self.rejected += 1
             self.service.stats.record_rejected(request.tenant_id)
+            obs.get_metrics().counter("rejected_requests").inc()
+            obs.instant("fleet.reject", tenant=request.tenant_id,
+                        rows=rows, pending_rows=self._pending_rows)
             raise ServiceError(
                 f"admission rejected for tenant {request.tenant_id!r}: "
                 f"{rows} rows would put the queue at "
@@ -340,6 +352,8 @@ class FleetFrontend:
         self._pending.append(_Pending(request, idx))
         self._pending_rows += rows
         self.admitted += 1
+        obs.get_metrics().counter("admitted_rows").inc(rows)
+        obs.instant("fleet.admit", tenant=request.tenant_id, rows=rows)
         return idx
 
     def flush(self, *, wave_rows: int | None = None) -> list[PredictResult]:
@@ -348,7 +362,7 @@ class FleetFrontend:
 
         If the worker dies with the batch in flight (:class:`WorkerLost`),
         the batch is RE-ADMITTED — the queue is restored exactly as it
-        was, ``replayed`` counts the survivors, and the error
+        was, ``requests_replayed`` counts the survivors, and the error
         propagates so the caller can retry the flush (``replay`` does).
         """
         if not self._pending:
@@ -358,15 +372,19 @@ class FleetFrontend:
         rows = self._pending_rows
         self._pending = []
         self._pending_rows = 0
-        try:
-            return self.service.serve(batch, wave_rows=wave_rows)
-        except WorkerLost:
-            # The requests died with the worker — put them back in
-            # admission order instead of dropping them on the floor.
-            self._pending = pending
-            self._pending_rows = rows
-            self.replayed += len(batch)
-            raise
+        with obs.span("fleet.flush", requests=len(batch), rows=rows):
+            try:
+                return self.service.serve(batch, wave_rows=wave_rows)
+            except WorkerLost:
+                # The requests died with the worker — put them back in
+                # admission order instead of dropping them on the floor.
+                self._pending = pending
+                self._pending_rows = rows
+                self.replayed += len(batch)
+                obs.get_metrics().counter("requests_replayed").inc(
+                    len(batch))
+                obs.instant("fleet.replay", requests=len(batch), rows=rows)
+                raise
 
     def replay(self, requests: Sequence[PredictRequest], *,
                wave_rows: int | None = None, max_flush_attempts: int = 3

@@ -18,9 +18,11 @@ share the OS page cache.  A fault while materialising a bundle (truncated
 shard, flipped checkpoint manifest, vanished leaf) surfaces as a typed
 ``BundleError``, retried first under ``fault_policy`` when one is given.
 
-The reference's ``registry_*`` metrics counters are plain int attributes
-here (``hits``, ``loads``, ``evictions``, ``shard_hits``, ``shard_loads``);
-its spans and instants are not carried over.
+Every hit, cold load and eviction also bumps the ``repro_torch.obs``
+counters ``registry_hits`` / ``registry_loads`` / ``registry_evictions``
+(beside the int attributes ``hits``, ``loads``, ``evictions``,
+``shard_hits``, ``shard_loads``); loads run under a ``registry.load`` span
+and hits and evictions are ``registry.hit`` / ``registry.evict`` instants.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.encoding.dispatch import (
@@ -182,6 +185,10 @@ class EncoderRegistry:
         self.shard_hits = 0
         self.shard_loads = 0
         self.peak_resident_bytes = 0
+        m = obs.get_metrics()
+        self._m_hits = m.counter("registry_hits")
+        self._m_loads = m.counter("registry_loads")
+        self._m_evictions = m.counter("registry_evictions")
 
     # -- registration --------------------------------------------------------
     def add(self, name: str, path: str) -> EncoderBundle:
@@ -261,6 +268,8 @@ class EncoderRegistry:
             budget = self.device_memory_budget
             if name in self._loaded:
                 self.hits += 1
+                self._m_hits.inc()
+                obs.instant("registry.hit", model=name)
                 entry = self._loaded[name]
                 self._loaded.move_to_end(name)
                 if eff_wave > entry.charged_wave_rows \
@@ -295,22 +304,23 @@ class EncoderRegistry:
             # Evict BEFORE loading so the peak never exceeds budget.
             self._evict_until_fits(extra_need=need)
             t0 = time.perf_counter()
-            try:
-                encoder = retry_call(
-                    lambda: bundle.load_encoder(mmap=self.mmap_weights,
-                                                device=self.device),
-                    self.fault_policy, "registry.load_encoder")
-            except BundleError:
-                raise
-            except (ckpt_io.CheckpointError, OSError, ValueError) as e:
-                # Whatever the disk path throws mid-materialisation becomes
-                # the typed fault the service degrades on; no partial entry
-                # is ever inserted.
-                raise BundleError(
-                    f"bundle {name!r} failed to materialise: {e}") from e
-            p, t = bundle.shape
-            mu_x, sd_x, mu_y, sd_y = _serving_arrays(encoder, p, t,
-                                                     self.device)
+            with obs.span("registry.load", model=name, bytes=need):
+                try:
+                    encoder = retry_call(
+                        lambda: bundle.load_encoder(mmap=self.mmap_weights,
+                                                    device=self.device),
+                        self.fault_policy, "registry.load_encoder")
+                except BundleError:
+                    raise
+                except (ckpt_io.CheckpointError, OSError, ValueError) as e:
+                    # Whatever the disk path throws mid-materialisation
+                    # becomes the typed fault the service degrades on; no
+                    # partial entry is ever inserted.
+                    raise BundleError(
+                        f"bundle {name!r} failed to materialise: {e}") from e
+                p, t = bundle.shape
+                mu_x, sd_x, mu_y, sd_y = _serving_arrays(encoder, p, t,
+                                                         self.device)
             entry = LoadedEncoder(
                 name=name, bundle=bundle, encoder=encoder,
                 resident_bytes=need, charged_wave_rows=eff_wave,
@@ -319,6 +329,7 @@ class EncoderRegistry:
                 load_seconds=time.perf_counter() - t0)
             self._loaded[name] = entry
             self.loads += 1
+            self._m_loads.inc()
             self._note_peak()
             return entry
 
@@ -379,6 +390,8 @@ class EncoderRegistry:
                 slo, shi = bounds[i]
                 if key in self._shards:
                     self.shard_hits += 1
+                    self._m_hits.inc()
+                    obs.instant("registry.hit", model=name, shard=i)
                     entry = self._shards[key]
                     self._shards.move_to_end(key)
                     if eff_wave > entry.charged_wave_rows:
@@ -406,20 +419,23 @@ class EncoderRegistry:
                         f"weight shards")
                 self._evict_until_fits(extra_need=need, keep_shards=wanted)
                 t0 = time.perf_counter()
-                try:
-                    W = as_tensor(retry_call(
-                        lambda: bundle.load_weight_shard(i, mmap=True),
-                        self.fault_policy, "registry.load_shard"),
-                        self.device)
-                    mu_x, sd_x, mu_y, sd_y = retry_call(
-                        lambda: self._std_host_arrays(name),
-                        self.fault_policy, "registry.load_std")
-                except BundleError:
-                    raise
-                except (ckpt_io.CheckpointError, OSError, ValueError) as e:
-                    raise BundleError(
-                        f"shard {i} of {name!r} failed to materialise: "
-                        f"{e}") from e
+                with obs.span("registry.load", model=name, shard=i,
+                              bytes=need):
+                    try:
+                        W = as_tensor(retry_call(
+                            lambda: bundle.load_weight_shard(i, mmap=True),
+                            self.fault_policy, "registry.load_shard"),
+                            self.device)
+                        mu_x, sd_x, mu_y, sd_y = retry_call(
+                            lambda: self._std_host_arrays(name),
+                            self.fault_policy, "registry.load_std")
+                    except BundleError:
+                        raise
+                    except (ckpt_io.CheckpointError, OSError,
+                            ValueError) as e:
+                        raise BundleError(
+                            f"shard {i} of {name!r} failed to materialise: "
+                            f"{e}") from e
                 entry = LoadedShard(
                     name=name, shard=i, bounds=(slo, shi), W=W,
                     mu_x=as_tensor(mu_x, self.device),
@@ -430,6 +446,7 @@ class EncoderRegistry:
                     load_seconds=time.perf_counter() - t0)
                 self._shards[key] = entry
                 self.shard_loads += 1
+                self._m_loads.inc()
                 self._note_peak()
                 out.append(entry)
             return out
@@ -448,12 +465,16 @@ class EncoderRegistry:
             if skey is not None:
                 del self._shards[skey]
                 self.evictions += 1
+                self._m_evictions.inc()
+                obs.instant("registry.evict", model=skey[0], shard=skey[1])
                 continue
             victim = next((n for n in self._loaded if n != keep), None)
             if victim is None:
                 return
             del self._loaded[victim]
             self.evictions += 1
+            self._m_evictions.inc()
+            obs.instant("registry.evict", model=victim)
 
     def evict(self, name: str) -> bool:
         """Drop a resident entry — the full-bundle entry AND the model's
@@ -464,10 +485,14 @@ class EncoderRegistry:
             if name in self._loaded:
                 del self._loaded[name]
                 self.evictions += 1
+                self._m_evictions.inc()
+                obs.instant("registry.evict", model=name)
                 hit = True
             for key in [k for k in self._shards if k[0] == name]:
                 del self._shards[key]
                 self.evictions += 1
+                self._m_evictions.inc()
+                obs.instant("registry.evict", model=key[0], shard=key[1])
                 hit = True
             self._std_host.pop(name, None)
             return hit

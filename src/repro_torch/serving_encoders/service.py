@@ -40,9 +40,17 @@ fails to load mid-serve degrades ONLY its own requests (typed
 ``BundleError``/``RegistryError`` on ``PredictResult.error``, the bundle
 evicted); malformed requests refuse the whole batch up front.
 
-The reference's strict recompile sentinel (``obs.CompileCounter.expect``
-around each flight) and its spans and metrics counters are not carried
-over yet.
+Observability, as the reference's: each wave is a ``serve.wave.build``
+span (host-side packing and the copy to the device) and a
+``serve.wave.execute`` span; ``ServiceStats`` also feeds the
+``repro_torch.obs`` counters ``waves{bucket}``, ``wave_rows``,
+``wave_pad_rows`` and ``tenant_rows{tenant}``.  ``compiles`` is the
+``obs.CompileCounter`` of the wave programs, marked once per new
+(program, wave shape, weight shape and dtype) signature, and every flight
+runs inside ``_expect_shape``'s window, so under ``REPRO_OBS_STRICT=1`` a
+signature the shape key did not predict raises ``obs.RecompileError``.
+On the card an unscored wave's ``serve.wave.execute`` span measures the
+enqueue: nothing waits for the device there, as in the reference.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.serving_encoders.bundle import BundleError
 from repro_torch.serving_encoders.registry import EncoderRegistry, RegistryError
@@ -114,6 +123,10 @@ class ServiceStats:
         b["pad_rows"] += wave_rows - real
         self.waves += 1
         self.pad_rows += wave_rows - real
+        m = obs.get_metrics()
+        m.counter("waves", bucket=wave_rows).inc()
+        m.counter("wave_rows").inc(real)
+        m.counter("wave_pad_rows").inc(wave_rows - real)
 
     def tenant(self, tenant: str) -> dict:
         return self.per_tenant.setdefault(
@@ -127,6 +140,7 @@ class ServiceStats:
         acct["bytes"] += nbytes
         acct["requests"] += 1
         acct["scored"] += int(scored)
+        obs.get_metrics().counter("tenant_rows", tenant=tenant).inc(rows)
 
     def record_error(self, tenant: str) -> None:
         self.tenant(tenant)["errors"] += 1
@@ -137,7 +151,7 @@ class ServiceStats:
     def to_dict(self) -> dict:
         """The reference's stats schema (kind ``"service"``)."""
         return {
-            "schema": "repro.obs/v1",
+            "schema": obs.SCHEMA_VERSION,
             "kind": "service",
             "waves": int(self.waves),
             "rows": int(self.rows),
@@ -281,7 +295,8 @@ class EncoderService:
     wave by the rows remaining) or the single ``wave_rows``;
     ``serve(..., wave_rows=...)`` pins one shape per call.
     ``compile_count`` counts the distinct (program, wave shape, weight
-    shape and dtype) signatures flown.  ``score_slots`` bounds how many
+    shape and dtype) signatures flown (an alias over the
+    ``obs.CompileCounter`` ``compiles``).  ``score_slots`` bounds how many
     scored requests share one wave; ``prefetch_next=True`` touches the
     registry for the NEXT queued model on a background thread while the
     current model's waves are in flight.
@@ -308,16 +323,32 @@ class EncoderService:
         self.score_slots = score_slots
         self.prefetch_next = prefetch_next
         self.return_predictions = return_predictions
+        self.compiles = obs.CompileCounter("service.predict")
         self._signatures: set = set()
+        self._seen_shapes: set = set()
         self.stats = ServiceStats()
 
     @property
     def compile_count(self) -> int:
-        """Distinct wave signatures flown (the reference's trace count)."""
-        return len(self._signatures)
+        """Distinct wave signatures flown (the reference's trace count; an
+        alias over the shared :class:`repro_torch.obs.CompileCounter`)."""
+        return self.compiles.count
 
     def _flown(self, key: tuple) -> None:
-        self._signatures.add(key)
+        """Mark a wave program's signature the first time it flies — the
+        port's counterpart of the reference's trace."""
+        if key not in self._signatures:
+            self.compiles.mark()
+            self._signatures.add(key)
+
+    def _expect_shape(self, key: tuple):
+        """Strict-sentinel window for one wave flight: a shape key seen
+        before must fly 0 new signatures; a fresh key is allowed exactly
+        one.  Under ``REPRO_OBS_STRICT=1`` a violation raises
+        (``obs.RecompileError``) instead of skewing the counter."""
+        fresh = key not in self._seen_shapes
+        self._seen_shapes.add(key)
+        return self.compiles.expect(at_most=1 if fresh else 0)
 
     # -- wave planning -------------------------------------------------------
     def _plan_waves(self, n_rows: int, wave_rows: int | None) -> list[int]:
@@ -390,13 +421,18 @@ class EncoderService:
         parts, counts = [], []
         pos = 0
         for w in self._plan_waves(feats.shape[0], wave_rows):
-            chunk = self._to_device(self._pad(feats[pos:pos + w], w))
+            with obs.span("serve.wave.build", rows=w, model=model):
+                chunk = self._to_device(self._pad(feats[pos:pos + w], w))
             real = min(w, feats.shape[0] - pos)
             outs = []
-            for e in shards:
-                self._flown(("predict", w, p, int(e.W.shape[1]), e.W.dtype))
-                outs.append(predict_rows(chunk, e.W, e.mu_x, e.sd_x,
-                                         e.mu_y, e.sd_y))
+            with obs.span("serve.wave.execute", rows=w,
+                          shards=len(shards)):
+                for e in shards:
+                    n_cols = int(e.W.shape[1])
+                    with self._expect_shape(("predict", w, p, n_cols)):
+                        self._flown(("predict", w, p, n_cols, e.W.dtype))
+                        outs.append(predict_rows(chunk, e.W, e.mu_x, e.sd_x,
+                                                 e.mu_y, e.sd_y))
             parts.append(torch.cat(outs, dim=1) if len(outs) > 1
                          else outs[0])
             counts.append(real)
@@ -433,30 +469,35 @@ class EncoderService:
         p = blocks[0].shape[1]
         flown: list[tuple[MixedWave, torch.Tensor]] = []
         for wave in plan:
-            X = np.zeros((wave.rows, p), np.float32)
-            Yt = np.zeros((wave.rows, t), np.float32)
-            onehot = np.zeros((wave.rows, s), np.float32)
-            for seg in wave.segments:
-                dst = slice(seg.wave_lo,
-                            seg.wave_lo + seg.req_hi - seg.req_lo)
-                X[dst] = blocks[seg.req][seg.req_lo:seg.req_hi]
-                if seg.slot is not None:
-                    Yt[dst] = targets[seg.req][seg.req_lo:seg.req_hi]
-                    onehot[dst, seg.slot] = 1.0
-            sums_in = torch.zeros((s, 5, t), dtype=torch.float32,
-                                  device=self.device)
-            for seg in wave.segments:
-                if seg.slot is not None:
-                    sums_in[seg.slot] = req_sums[seg.req]
-            self._flown(("mixed", wave.rows, p, t, s,
-                         entry.weights.dtype))
-            P, sums_out = predict_mixed(
-                self._to_device(X), self._to_device(Yt),
-                self._to_device(onehot), sums_in, *enc_args)
-            self.stats.record_wave(wave.rows, wave.fill)
-            for seg in wave.segments:
-                if seg.slot is not None:
-                    req_sums[seg.req] = sums_out[seg.slot]
+            with obs.span("serve.wave.build", rows=wave.rows,
+                          fill=wave.fill, model=model):
+                X = np.zeros((wave.rows, p), np.float32)
+                Yt = np.zeros((wave.rows, t), np.float32)
+                onehot = np.zeros((wave.rows, s), np.float32)
+                for seg in wave.segments:
+                    dst = slice(seg.wave_lo,
+                                seg.wave_lo + seg.req_hi - seg.req_lo)
+                    X[dst] = blocks[seg.req][seg.req_lo:seg.req_hi]
+                    if seg.slot is not None:
+                        Yt[dst] = targets[seg.req][seg.req_lo:seg.req_hi]
+                        onehot[dst, seg.slot] = 1.0
+                sums_in = torch.zeros((s, 5, t), dtype=torch.float32,
+                                      device=self.device)
+                for seg in wave.segments:
+                    if seg.slot is not None:
+                        sums_in[seg.slot] = req_sums[seg.req]
+                X, Yt, onehot = (self._to_device(a) for a in (X, Yt, onehot))
+            with obs.span("serve.wave.execute", rows=wave.rows,
+                          fill=wave.fill, model=model):
+                with self._expect_shape(("mixed", wave.rows, p, t, s)):
+                    self._flown(("mixed", wave.rows, p, t, s,
+                                 entry.weights.dtype))
+                    P, sums_out = predict_mixed(X, Yt, onehot, sums_in,
+                                                *enc_args)
+                self.stats.record_wave(wave.rows, wave.fill)
+                for seg in wave.segments:
+                    if seg.slot is not None:
+                        req_sums[seg.req] = sums_out[seg.slot]
             flown.append((wave, P))
 
         out_pred = None

@@ -20,7 +20,7 @@ from repro_torch.wholebrain.artifact import BundleWriter
 from repro_torch.wholebrain.solver import WholebrainResult, fit_wholebrain
 from repro_torch.wholebrain.stats import (
     ColumnBlockAccumulator, ColumnBlockStats, colblock_update_compile_count,
-    column_blocks,
+    colblock_update_compiles, column_blocks,
 )
 
 __all__ = [
@@ -29,6 +29,7 @@ __all__ = [
     "ColumnBlockStats",
     "WholebrainResult",
     "colblock_update_compile_count",
+    "colblock_update_compiles",
     "column_blocks",
     "fit_wholebrain",
 ]

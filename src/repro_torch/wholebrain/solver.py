@@ -27,9 +27,10 @@ once when its rows fit the cache policy (the X-only statistics ride block
 0's stream and a host cache replays the rows for later blocks), else once
 per block (telemetry: ``row_passes_x``).
 
-Not ported here: the reference's ``obs`` spans (``fit.wholebrain``,
-``wholebrain.xstats``, ``wholebrain.block``, ``fit.eigh``, ``fit.solve``)
-and ``journal=`` (resumable fits), both ROADMAP queue 1 item 10.
+``journal=`` (a ``resilience.FitJournal``) makes the fit resumable: the X
+statistics and every finished block are committed as they complete, and a
+killed fit re-run with the same journal replays them and streams only the
+rest, with λ and W bitwise equal to an uninterrupted run on the same card.
 """
 from __future__ import annotations
 
@@ -42,12 +43,15 @@ import tempfile
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import foldstats
 from repro_torch.data.store import _storage_dtype
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, sync_if_traced
 from repro_torch.encoding.config import EncoderConfig
+from repro_torch.resilience.journal import FitJournal, JournalError
 from repro_torch.wholebrain.stats import (
-    ColumnBlockAccumulator, colblock_update_compile_count, column_blocks,
+    ColumnBlockAccumulator, colblock_update_compile_count,
+    colblock_update_compiles, column_blocks,
 )
 
 
@@ -130,8 +134,12 @@ def journal_signature(store, cfg: EncoderConfig | None = None, *,
                       chunk_rows: int | None = None,
                       device: torch.device | str | None = None) -> dict:
     """The ``FitJournal`` signature ``fit_wholebrain`` would compute for
-    these arguments — every input that shapes the bits of λ/W.  The kernel
-    tier is resolved for ``device`` (CUDA unless ``device="cpu"``)."""
+    these arguments — every input that shapes the bits of λ/W.  Callers
+    that attach a journal themselves (to wrap it in
+    ``faultsim.KillAfterBlock``, say) build it from here so the solver
+    accepts it.  The kernel tier is resolved for ``device`` (CUDA unless
+    ``device="cpu"``); the keys are the reference's, so a journal either
+    package wrote attaches in the other."""
     cfg = cfg or EncoderConfig()
     n, p, t = store.shape
     t_block = t_block or getattr(cfg, "target_block", None)
@@ -193,15 +201,50 @@ def fit_wholebrain(store, cfg: EncoderConfig | None = None, *,
     ``device`` runs the fit (CUDA unless ``device="cpu"``); the kernel tier
     follows ``cfg.use_pallas`` for it.
 
-    The X-only and column-block updates must each see at most one new
-    fixed-shape signature over the whole fit (every block shares them);
-    more raises ``RuntimeError``.  ``journal=`` (resumable fits) is not
-    ported yet and raises ``NotImplementedError``.
+    ``journal`` makes the fit resumable: a directory path, or an attached
+    ``FitJournal`` whose signature matches :func:`journal_signature`
+    (``JournalError`` otherwise), where the X-statistics pass and every
+    completed column block are committed as they finish.  A fit killed
+    mid-stream and re-run with the same journal replays the committed
+    statistics — never re-accumulating them — streams only the remaining
+    blocks, and produces λ and W bitwise equal to an uninterrupted run.
+    On success the journal directory is deleted.
+
+    The whole fit runs under a ``fit.wholebrain`` root span (children:
+    ``wholebrain.xstats``, ``wholebrain.block``, ``fit.eigh``,
+    ``fit.solve``) with the recompile sentinel armed at one new signature
+    per update tier for the full run — every block shares the X-only and
+    column-block updates; under ``REPRO_OBS_STRICT=1`` a second raises
+    ``obs.RecompileError`` at the update that sees it.
     """
-    if journal is not None:
-        raise NotImplementedError(
-            "fit_wholebrain(journal=...) is not ported yet: resumable fits "
-            "come with ROADMAP queue 1, item 10 (obs and resilience)")
+    n, p, t = store.shape
+    with obs.span("fit.wholebrain", n=n, p=p, t=t,
+                  lambda_mode=lambda_mode), \
+         foldstats.chunk_update_compiles().expect(at_most=1), \
+         colblock_update_compiles().expect(at_most=1):
+        return _fit_wholebrain(store, cfg, t_block=t_block,
+                               lambda_mode=lambda_mode,
+                               chunk_rows=chunk_rows, writer=writer,
+                               collect=collect, scratch_dir=scratch_dir,
+                               journal=journal, device=device)
+
+
+def _attach_journal(journal, signature: dict):
+    """A ``FitJournal`` (or a wrapper of one) for ``signature``."""
+    if isinstance(journal, (str, os.PathLike)):
+        return FitJournal.attach(os.fspath(journal), signature)
+    if getattr(journal, "signature", None) != signature:
+        raise JournalError(
+            f"attached journal signature {journal.signature} does not "
+            f"match this fit's {signature}")
+    return journal
+
+
+def _fit_wholebrain(store, cfg: EncoderConfig | None, *,
+                    t_block: int | None, lambda_mode: str,
+                    chunk_rows: int | None, writer, collect: bool | None,
+                    scratch_dir: str | None, journal,
+                    device: torch.device | str | None) -> WholebrainResult:
     cfg = cfg or EncoderConfig()
     if cfg.solver not in ("auto", "ridge"):
         raise ValueError(f"wholebrain fit supports only the ridge solver; "
@@ -238,46 +281,78 @@ def fit_wholebrain(store, cfg: EncoderConfig | None = None, *,
     fixed0 = foldstats.chunk_update_compile_count()
     colblock0 = colblock_update_compile_count()
     dtype_x = getattr(store, "dtype_x", torch.float32)
+    x_cache_fits = _XChunkCache.fits(n, p, dtype_x.itemsize,
+                                     cfg.device_memory_budget)
 
-    # -- fused first pass: the X-only statistics (G/xsum/count from a
-    # zero-width Y window) ride block 0's stream, and the feature rows are
-    # cached when they fit the policy, so later blocks re-stream only their
-    # own Y columns.
-    lo0, hi0 = bounds[0]
-    gacc = foldstats.FoldStatsAccumulator(n, k, **acc_kw)
-    bacc0 = ColumnBlockAccumulator(n, k, t_pad, **acc_kw)
-    x_cache = None
-    if len(bounds) > 1 and _XChunkCache.fits(n, p, dtype_x.itemsize,
-                                             cfg.device_memory_budget):
-        x_cache = _XChunkCache(n, p, _storage_dtype(dtype_x))
+    jrn = None
+    if journal is not None:
+        jrn = _attach_journal(journal, journal_signature(
+            store, cfg, t_block=t_block, lambda_mode=lambda_mode,
+            chunk_rows=chunk_rows, device=dev))
+    done: set[int] = jrn.completed_blocks() if jrn is not None else set()
+    resumed = jrn is not None and jrn.has_xstats
+    # The last block that streams this run: a rebuilt X cache pays off only
+    # if a streamed block follows it.
+    last_streamed = max((i for i in range(len(bounds)) if i not in done),
+                        default=-1)
 
-    with contextlib.closing(store.iter_chunks(
-            chunk_rows, col_range=(lo0, hi0), **stream_kw)) as stream:
-        for Xc, Yc in stream:
-            gacc.update(Xc, Yc[:, :0])
-            bacc0.update(Xc, Yc)
-            if x_cache is not None:
-                x_cache.append(np.asarray(Xc))
-    _stream_stats(agg, stream)
-    gstats = gacc.finalize()
-    block0_stats = bacc0.finalize()
-    del gacc, bacc0
+    if not resumed:
+        # -- fused first pass: the X-only statistics (G/xsum/count from a
+        # zero-width Y window) ride block 0's stream, and the feature rows
+        # are cached when they fit the policy, so later blocks re-stream
+        # only their own Y columns.
+        lo0, hi0 = bounds[0]
+        with obs.span("wholebrain.xstats", rows=n, fused_block=0) as xsp:
+            gacc = foldstats.FoldStatsAccumulator(n, k, **acc_kw)
+            bacc0 = ColumnBlockAccumulator(n, k, t_pad, **acc_kw)
+            x_cache = None
+            if len(bounds) > 1 and x_cache_fits:
+                x_cache = _XChunkCache(n, p, _storage_dtype(dtype_x))
+            xsp.set(cached=x_cache is not None)
+            with contextlib.closing(store.iter_chunks(
+                    chunk_rows, col_range=(lo0, hi0), **stream_kw)) as stream:
+                for Xc, Yc in stream:
+                    gacc.update(Xc, Yc[:, :0])
+                    bacc0.update(Xc, Yc)
+                    if x_cache is not None:
+                        x_cache.append(np.asarray(Xc))
+            _stream_stats(agg, stream)
+            xsp.set(bytes_staged=agg["bytes_staged"])
+            gstats = gacc.finalize()
+            block0_stats = bacc0.finalize()
+            del gacc, bacc0
+        G, xsum, count = gstats.G, gstats.xsum, gstats.count
+        del gstats
+        if jrn is not None:
+            jrn.put_xstats(G.cpu().numpy(), xsum.cpu().numpy(),
+                           count.cpu().numpy())
+    else:
+        # -- resume: REPLAY the journaled X statistics (the f32 bytes the
+        # killed fit produced, so the recomputed eighs and everything
+        # downstream match bitwise).  The X chunk cache died with the old
+        # process; the first streamed block rebuilds it.
+        with obs.span("wholebrain.xstats", rows=n, replayed=True):
+            G, xsum, count = (torch.from_numpy(a).to(dev)
+                              for a in jrn.load_xstats())
+        block0_stats = None
+        x_cache = None
 
     # -- hoisted factorisations: k downdated eighs + the refit, once, and
     # each fold's X-only scoring terms; the (k, p, p) Gram is not needed
     # after them.
-    eye = cfg.jitter * torch.eye(p, dtype=torch.float32, device=dev)
-    lams = torch.tensor(cfg.lambdas, dtype=torch.float32, device=dev)
-    count = gstats.count
-    G_total = gstats.G_total
-    fold_eigs, x_terms = [], []
-    for f in range(k):
-        evals_f, Q_f = torch.linalg.eigh(G_total - gstats.G[f] + eye)
-        fold_eigs.append((evals_f, Q_f))
-        x_terms.append(foldstats.eigenbasis_x_terms(
-            gstats.xsum[f], gstats.G[f], count[f], Q_f))
-    evals_R, Q_R = torch.linalg.eigh(G_total + eye)
-    del gstats, G_total, eye
+    with obs.span("fit.eigh", folds=k, p=p):
+        eye = cfg.jitter * torch.eye(p, dtype=torch.float32, device=dev)
+        lams = torch.tensor(cfg.lambdas, dtype=torch.float32, device=dev)
+        G_total = G.sum(0)
+        fold_eigs, x_terms = [], []
+        for f in range(k):
+            evals_f, Q_f = torch.linalg.eigh(G_total - G[f] + eye)
+            fold_eigs.append((evals_f, Q_f))
+            x_terms.append(foldstats.eigenbasis_x_terms(
+                xsum[f], G[f], count[f], Q_f))
+        evals_R, Q_R = torch.linalg.eigh(G_total + eye)
+        del G, xsum, G_total, eye
+        sync_if_traced(dev)
 
     W_full = np.empty((p, t), np.float32) if collect else None
     scratch = None
@@ -287,6 +362,7 @@ def fit_wholebrain(store, cfg: EncoderConfig | None = None, *,
     per_block_curves: list[np.ndarray] = []
     score_sum = np.zeros((k, r), np.float64)     # global: Σ_cols per fold
     restreamed_x = 0
+    blocks_replayed = 0
 
     def emit(Wb: np.ndarray, lo: int, hi: int) -> None:
         if collect:
@@ -307,66 +383,103 @@ def fit_wholebrain(store, cfg: EncoderConfig | None = None, *,
         # -- per-block pass: stream the block's columns, score every fold.
         # Block 0 came from the fused first pass; later blocks read X from
         # the cache when it was captured, else re-stream the full rows.
+        # Blocks a killed fit journaled are REPLAYED in block order.
         for bi, (lo, hi) in enumerate(bounds):
-            w = hi - lo
-            if bi == 0:
-                bstats, block0_stats = block0_stats, None
-            else:
-                bacc = ColumnBlockAccumulator(n, k, t_pad, **acc_kw)
-                if x_cache is not None:
-                    # A Y-only store pass zipped with the cache's replay of
-                    # the identical chunk partition.
-                    with contextlib.closing(store.iter_chunks(
-                            chunk_rows, col_range=(lo, hi),
-                            col_range_x=(0, 0), **stream_kw)) as stream:
-                        for Xc, (_, Yc) in zip(x_cache.chunks(), stream):
-                            bacc.update(Xc, Yc)
+            if bi in done:
+                with obs.span("wholebrain.block", block=bi, lo=lo, hi=hi,
+                              replayed=True):
+                    rec = jrn.load_block(bi)
+                    blocks_replayed += 1
+                    if lambda_mode == "global":
+                        # The killed fit's f64 addends in the same block
+                        # order: the running sum stays bitwise equal.
+                        score_sum += rec["scores"]
+                        scratch[:, lo:hi] = rec["ahat"]
+                    else:
+                        per_block_lams.append(rec["lam"])
+                        per_block_curves.append(rec["curve"])
+                        emit(rec["W"], lo, hi)
+                continue
+            with obs.span("wholebrain.block", block=bi, lo=lo, hi=hi) as bsp:
+                bytes0 = agg["bytes_staged"]
+                w = hi - lo
+                if bi == 0 and block0_stats is not None:
+                    bstats, block0_stats = block0_stats, None
                 else:
-                    restreamed_x += 1
-                    with contextlib.closing(store.iter_chunks(
-                            chunk_rows, col_range=(lo, hi),
-                            **stream_kw)) as stream:
-                        for Xc, Yc in stream:
-                            bacc.update(Xc, Yc)
-                _stream_stats(agg, stream)
-                bstats = bacc.finalize()
-                del bacc
-            _check_target_scale(bstats, n, lo, hi)
-            C_total_b = bstats.C_total                    # (p, t_pad)
-            fold_scores = []
-            contrib = np.zeros((k, r), np.float64)        # this block's Σ_cols
-            for f in range(k):
-                evals_f, Q_f = fold_eigs[f]
-                u_f, Ghat_f = x_terms[f]
-                s_rt = foldstats.validation_scores_from_terms(
-                    bstats.C[f], bstats.ysum[f], bstats.ysq[f], count[f],
-                    Q_f, evals_f, C_total_b - bstats.C[f], lams, cfg.scoring,
-                    u_f, Ghat_f)
+                    bacc = ColumnBlockAccumulator(n, k, t_pad, **acc_kw)
+                    if x_cache is not None:
+                        # A Y-only store pass zipped with the cache's
+                        # replay of the identical chunk partition.
+                        with contextlib.closing(store.iter_chunks(
+                                chunk_rows, col_range=(lo, hi),
+                                col_range_x=(0, 0), **stream_kw)) as stream:
+                            for Xc, (_, Yc) in zip(x_cache.chunks(), stream):
+                                bacc.update(Xc, Yc)
+                    else:
+                        restreamed_x += 1
+                        # Re-streaming the full rows anyway: capture them
+                        # when more streamed blocks follow (the resume
+                        # path's cache rebuild).
+                        capture = None
+                        if bi < last_streamed and x_cache_fits:
+                            capture = _XChunkCache(n, p,
+                                                   _storage_dtype(dtype_x))
+                        with contextlib.closing(store.iter_chunks(
+                                chunk_rows, col_range=(lo, hi),
+                                **stream_kw)) as stream:
+                            for Xc, Yc in stream:
+                                bacc.update(Xc, Yc)
+                                if capture is not None:
+                                    capture.append(np.asarray(Xc))
+                        if capture is not None:
+                            x_cache = capture
+                    _stream_stats(agg, stream)
+                    bstats = bacc.finalize()
+                    del bacc
+                _check_target_scale(bstats, n, lo, hi)
+                C_total_b = bstats.C_total                # (p, t_pad)
+                fold_scores = []
+                contrib = np.zeros((k, r), np.float64)    # this block's Σ_cols
+                for f in range(k):
+                    evals_f, Q_f = fold_eigs[f]
+                    u_f, Ghat_f = x_terms[f]
+                    s_rt = foldstats.validation_scores_from_terms(
+                        bstats.C[f], bstats.ysum[f], bstats.ysq[f],
+                        count[f], Q_f, evals_f, C_total_b - bstats.C[f],
+                        lams, cfg.scoring, u_f, Ghat_f)
+                    if lambda_mode == "global":
+                        # Host f64 sums in global column order: the
+                        # aggregate does not depend on the blocking.
+                        contrib[f] = (s_rt[:, :w].cpu().numpy()
+                                      .astype(np.float64).sum(axis=1))
+                    else:
+                        fold_scores.append(s_rt[:, :w].mean(1))
+                    del s_rt
+                del bstats
                 if lambda_mode == "global":
-                    # Host f64 sums in global column order: the aggregate
-                    # does not depend on the blocking.
-                    contrib[f] = (s_rt[:, :w].cpu().numpy()
-                                  .astype(np.float64).sum(axis=1))
+                    score_sum += contrib
+                    # The refit projection of the block: the only
+                    # per-block quantity the final solve needs, so λ
+                    # selection costs no second pass over the rows.
+                    Ahat_w = _project(Q_R, C_total_b).cpu().numpy()[:, :w]
+                    scratch[:, lo:hi] = Ahat_w
+                    if jrn is not None:
+                        jrn.put_block(bi, scores=contrib, ahat=Ahat_w)
                 else:
-                    fold_scores.append(s_rt[:, :w].mean(1))
-                del s_rt
-            del bstats
-            if lambda_mode == "global":
-                score_sum += contrib
-                # The refit projection of the block: the only per-block
-                # quantity the final solve needs, so λ selection costs no
-                # second pass over the rows.
-                scratch[:, lo:hi] = _project(Q_R, C_total_b).cpu().numpy()[
-                    :, :w]
-            else:
-                cv_b = torch.stack(fold_scores).mean(0)
-                best_b = int(torch.argmax(cv_b))
-                Wb = _solve_projected(Q_R, evals_R, lams[best_b],
-                                      _project(Q_R, C_total_b))[:, :w]
-                per_block_lams.append(float(lams[best_b]))
-                per_block_curves.append(cv_b.cpu().numpy().astype(np.float64))
-                emit(Wb.cpu().numpy(), lo, hi)
-            del C_total_b
+                    cv_b = torch.stack(fold_scores).mean(0)
+                    best_b = int(torch.argmax(cv_b))
+                    Wb = _solve_projected(Q_R, evals_R, lams[best_b],
+                                          _project(Q_R, C_total_b))[:, :w]
+                    lam_b = float(lams[best_b])
+                    curve_b = cv_b.cpu().numpy().astype(np.float64)
+                    Wb = Wb.cpu().numpy()
+                    per_block_lams.append(lam_b)
+                    per_block_curves.append(curve_b)
+                    if jrn is not None:
+                        jrn.put_block(bi, lam=lam_b, curve=curve_b, W=Wb)
+                    emit(Wb, lo, hi)
+                del C_total_b
+                bsp.set(bytes_staged=agg["bytes_staged"] - bytes0)
 
         scratch_bytes = 0
         if lambda_mode == "global":
@@ -375,14 +488,15 @@ def fit_wholebrain(store, cfg: EncoderConfig | None = None, *,
             lam = float(lams[best])
             # -- weight pass: read each block's Â back, padded to t_pad as
             # every block's products ran, and solve at the selected λ.
-            scratch.flush()
-            for lo, hi in bounds:
-                w = hi - lo
-                Ab = np.zeros((p, t_pad), np.float32)
-                Ab[:, :w] = scratch[:, lo:hi]
-                Wb = _solve_projected(Q_R, evals_R, lams[best],
-                                      torch.from_numpy(Ab).to(dev))[:, :w]
-                emit(Wb.cpu().numpy(), lo, hi)
+            with obs.span("fit.solve", p=p, blocks=len(bounds)):
+                scratch.flush()
+                for lo, hi in bounds:
+                    w = hi - lo
+                    Ab = np.zeros((p, t_pad), np.float32)
+                    Ab[:, :w] = scratch[:, lo:hi]
+                    Wb = _solve_projected(Q_R, evals_R, lams[best],
+                                          torch.from_numpy(Ab).to(dev))[:, :w]
+                    emit(Wb.cpu().numpy(), lo, hi)
             scratch_bytes = p * t * 4
             best_lambda = np.asarray([lam], np.float64)
             curves = cv_scores[None, :]
@@ -402,31 +516,29 @@ def fit_wholebrain(store, cfg: EncoderConfig | None = None, *,
         if tmp_holder is not None:
             shutil.rmtree(tmp_holder, ignore_errors=True)
 
-    gram_delta = foldstats.chunk_update_compile_count() - fixed0
-    colblock_delta = colblock_update_compile_count() - colblock0
-    if gram_delta > 1 or colblock_delta > 1:
-        raise RuntimeError(
-            f"wholebrain fit saw {gram_delta} X-only and {colblock_delta} "
-            f"column-block update signatures; every block must share one")
     telemetry = {
         **agg,
         "n_blocks": len(bounds),
         "t_block": t_block,
         "t_pad": t_pad,
         "eighs": k + 1,
-        "gram_compile_delta": gram_delta,
-        "colblock_compile_delta": colblock_delta,
+        "gram_compile_delta": foldstats.chunk_update_compile_count() - fixed0,
+        "colblock_compile_delta": (colblock_update_compile_count()
+                                   - colblock0),
         "scratch_bytes": scratch_bytes if lambda_mode == "global" else 0,
-        # 1 fused first pass + every block that re-streamed the feature
-        # shards because the X chunk cache was not captured.
-        "row_passes_x": 1 + restreamed_x,
+        # 1 fused first pass (none on resume) + every block that
+        # re-streamed the feature shards because the X chunk cache was not
+        # captured (or died with the killed fit).
+        "row_passes_x": (0 if resumed else 1) + restreamed_x,
         "row_passes_y": 1,
         "x_cache_bytes": 0 if x_cache is None else x_cache.nbytes,
         "use_pallas": use_pallas,
-        "resumed": False,
-        "blocks_replayed": 0,
-        "blocks_streamed": len(bounds),
+        "resumed": resumed,
+        "blocks_replayed": blocks_replayed,
+        "blocks_streamed": len(bounds) - blocks_replayed,
     }
+    if jrn is not None:
+        jrn.finish()
     return WholebrainResult(
         best_lambda=best_lambda, cv_scores=np.asarray(curves, np.float64),
         lambdas=cfg.lambdas, lambda_mode=lambda_mode, t_block=t_block,

@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import foldstats
 from repro_torch.kernels import ops, ref
 
@@ -68,27 +69,30 @@ class _ColumnBlockUpdate:
     (the CUDA kernel on the kernel tier, ``kernels.ref`` otherwise),
     scattered into the folds with ``index_add_``.
 
-    ``compile_count`` counts the distinct fixed-shape signatures
-    ``(chunk_rows, p, t_pad, s, dtype, use_pallas)`` seen — PyTorch runs
-    eagerly, so this is the number of traces the reference's one jitted
-    update would make.  (The reference also exposes an
-    ``obs.CompileCounter`` with a raising ``expect``; the port has none
-    until ROADMAP queue 1 item 10.)
+    ``compiles`` (an ``obs.CompileCounter``) is marked once per distinct
+    fixed-shape signature ``(chunk_rows, p, t_pad, s, dtype, use_pallas)``
+    — PyTorch runs eagerly, so this is the number of traces the
+    reference's one jitted update would make; an ``expect`` window under
+    ``REPRO_OBS_STRICT=1`` raises before the update of a new signature.
     """
 
     def __init__(self) -> None:
+        self.compiles = obs.CompileCounter("wholebrain.colblock_update")
         self._seen: set[tuple] = set()
 
     @property
     def compile_count(self) -> int:
-        return len(self._seen)
+        return self.compiles.count
 
     def __call__(self, stats: ColumnBlockStats, X: torch.Tensor,
                  Y: torch.Tensor, onehot: torch.Tensor,
                  slot_fold: torch.Tensor, *,
                  use_pallas: bool = False) -> ColumnBlockStats:
-        self._seen.add((X.shape[0], X.shape[1], Y.shape[1], onehot.shape[1],
-                        X.dtype, Y.dtype, use_pallas))
+        sig = (X.shape[0], X.shape[1], Y.shape[1], onehot.shape[1], X.dtype,
+               Y.dtype, use_pallas)
+        if sig not in self._seen:
+            self.compiles.mark()
+            self._seen.add(sig)
         dt = torch.promote_types(X.dtype, Y.dtype)
         w = onehot                                          # (m, s) f32 0/1
         if use_pallas:
@@ -128,10 +132,16 @@ def colblock_update_compile_count() -> int:
     """Distinct fixed-shape signatures the column-block update has seen
     (monotonic, process-wide).  Take a delta around a blocked fit: 1 for a
     fresh ``(chunk_rows, p, t_pad, s, dtype, use_pallas)`` signature
-    however many blocks stream, 0 for a repeat.  The reference's
-    ``colblock_update_compiles()`` counter object comes with ROADMAP
-    queue 1 item 10; the port has the count only."""
-    return _COLBLOCK_UPDATE.compile_count
+    however many blocks stream, 0 for a repeat.  (Alias over
+    ``colblock_update_compiles().count``.)"""
+    return _COLBLOCK_UPDATE.compiles.count
+
+
+def colblock_update_compiles() -> "obs.CompileCounter":
+    """The column-block update's :class:`repro_torch.obs.CompileCounter`
+    (open ``expect(at_most=...)`` windows to arm the recompile
+    sentinel)."""
+    return _COLBLOCK_UPDATE.compiles
 
 
 class ColumnBlockAccumulator(foldstats.FoldStatsAccumulator):
@@ -181,4 +191,4 @@ class ColumnBlockAccumulator(foldstats.FoldStatsAccumulator):
 
 
 __all__ = ["ColumnBlockAccumulator", "ColumnBlockStats", "column_blocks",
-           "colblock_update_compile_count"]
+           "colblock_update_compile_count", "colblock_update_compiles"]

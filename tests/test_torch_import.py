@@ -50,7 +50,11 @@ def test_port_has_every_slice_module():
               "repro_torch.serving_encoders.registry",
               "repro_torch.serving_encoders.service",
               "repro_torch.serving_encoders.traffic",
-              "repro_torch.serving_encoders.fleet"):
+              "repro_torch.serving_encoders.fleet", "repro_torch.obs",
+              "repro_torch.obs.metrics", "repro_torch.obs.trace",
+              "repro_torch.obs.sentinel", "repro_torch.resilience.journal",
+              "repro_torch.resilience.faultsim",
+              "repro_torch.launch.obs_report"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):

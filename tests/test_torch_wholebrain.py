@@ -23,6 +23,7 @@ from repro.wholebrain import fit_wholebrain as jfit
 from repro_torch.core import foldstats, ridge
 from repro_torch.data.store import RunStore
 from repro_torch.encoding import BrainEncoder, EncoderConfig, dispatch
+from repro_torch.resilience import FitJournal, JournalError
 from repro_torch.wholebrain import (
     ColumnBlockAccumulator, colblock_update_compile_count, column_blocks,
     fit_wholebrain,
@@ -264,7 +265,7 @@ def test_signature_counts_one_fresh_zero_repeat(make_run_store):
     assert res2.telemetry["gram_compile_delta"] == 0
 
 
-def test_fit_wholebrain_validation(make_run_store):
+def test_fit_wholebrain_validation(make_run_store, tmp_path):
     X, Y = _problem(4, 40, 4, 6)
     _, store = _stores(make_run_store, X, Y, n_folds=3)
     cfg = EncoderConfig(n_folds=3)
@@ -282,9 +283,11 @@ def test_fit_wholebrain_validation(make_run_store):
     with pytest.raises(ValueError, match="primal"):
         fit_wholebrain(store, EncoderConfig(n_folds=3, method="dual"),
                        t_block=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fit_wholebrain(store, cfg, t_block=3, journal="journal_dir",
-                       device="cpu")
+    # A journal another fit configuration wrote is refused, not resumed.
+    FitJournal.attach(str(tmp_path / "journal"), {"n": 0})
+    with pytest.raises(JournalError, match="different fit"):
+        fit_wholebrain(store, cfg, t_block=3,
+                       journal=str(tmp_path / "journal"), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         fit_wholebrain(store, EncoderConfig(n_folds=3, use_pallas=True),
                        t_block=3, device="cpu")

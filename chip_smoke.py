@@ -4,14 +4,13 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs sixteen phases, each of which
+nvcc into ``build/kernels/``, then runs seventeen phases, each of which
 raises (exit code 1) on a failed check (``--only 14,16`` runs the build
-and just the listed phases, 6 and 12 to 16, and prints no result lines):
+and just the listed phases, 6 and 12 to 17, and prints no result lines):
 
 1. Environment: versions, TF32 switches (all off), card name and power
-   limit, kernel build time (one nvcc per source, in parallel; beside it,
-   the same sources in one serial nvcc call) and the compiler's
-   register/spill report.
+   limit, kernel build time (one nvcc per source, in parallel) and the
+   compiler's register/spill report.
 2. Each kernel against its plain PyTorch version, f32 and bf16, at small
    ragged shapes and at the main path's full shapes, with times of the
    kernel and the nearest library call (in turns: library, kernel,
@@ -36,18 +35,24 @@ and just the listed phases, 6 and 12 to 16, and prints no result lines):
 6. The streamed slice at the ``parcels`` size: the 69,202 training rows are
    written to a ``RunStore`` under ``build/`` (about 4.7 GB of disk, deleted
    at the end) in runs of 480 rows, then fitted by ``pipeline.run_store``
-   and by a budgeted ``BrainEncoder.fit(store=)``.  Each must launch
+   and by the budgeted ``BrainEncoder.fit(store=)`` of the driver a lab
+   runs, ``launch/encode.py --store`` (``main`` in this process, with
+   ``--save-bundle`` and ``--trace-out``).  Each must launch
    ``xty_folds_masked`` 9 times (8,192-row chunks); the first must come out
    significant on the 7,689 held-out rows, the second must resolve to the
    ``chunked`` plan and equal the in-memory fit of the same rows.  The
-   second runs under a ``repro_torch.obs`` tracer with
-   ``REPRO_OBS_STRICT=1``: the span table of ``launch/obs_report.py``, the
-   fit root's coverage by its phase spans (at least 95%), and
-   ``prefetch.stage`` against ``prefetch.wait``.  Then the same fit through
-   ``faultsim.wrap_store`` with transient faults planned on one shard mmap
-   and two chunk reads: λ, W and the CV curve bitwise equal to the
-   unfaulted fit, 9 launches and no new signature, ``io_retries{op}`` equal
-   to the plan (1 ``store.mmap``, 2 ``prefetch.read``).
+   second runs with ``REPRO_OBS_STRICT=1``: the span table of its trace
+   through ``launch/obs_report.py``, the fit root's coverage by its phase
+   spans (at least 95%), and ``prefetch.stage`` against
+   ``prefetch.wait``; its weights come from its bundle (``bundle.json``
+   and ``report.json`` written, 29 MB besides the store).  Then the same
+   budgeted fit called directly, through ``faultsim.wrap_store`` with
+   transient faults planned on one shard mmap and two chunk reads: λ
+   equal, W within rtol 1e-4/atol 2e-4 and λ, W and the CV curve bitwise
+   equal to the driver's unfaulted fit, 9 launches and no new signature,
+   ``io_retries{op}`` equal to the plan (1 ``store.mmap``, 2
+   ``prefetch.read``); the driver's reloaded bundle predicts the held-out
+   rows as this fit does.
 
 7. The backbone kernels (``flash_attention``, ``ssd_intra``) against their
    plain versions, f32 and bf16, at small ragged shapes covering every
@@ -170,6 +175,32 @@ and just the listed phases, 6 and 12 to 16, and prints no result lines):
     counters ``waves``, ``wave_rows``, ``wave_pad_rows`` and
     ``admitted_rows`` equal to ``ServiceStats``, and its results bitwise
     equal to the untraced replay's.
+17. The drivers, from their command lines (``--only 17`` runs it alone).
+    (a) ``ssd_intra`` at the encode driver's 16-token chunk (N=512, Q=16,
+    H=80, P=64; f32 and bf16 operands) against its plain version, then in
+    this process ``encode.main`` with ``--backbone zamba2-2.7b --n 8192
+    --targets 444`` (full width and depth: X (8,192, 2,560)), which must
+    launch ``ssd_intra`` once per Mamba layer (54) and ``xty_folds`` once
+    and come out significant, and with the defaults (``--backbone vgg16``,
+    n 512, t 256, p 128: one ``xty_folds``); each run's ``xty_folds``
+    launch is held against ``ref.xty_folds`` on its own operands.  (b) ``python -m
+    repro_torch.launch.wholebrain --device cuda`` at the reference's full
+    shape (n 1,024, p 128, t 262,144, 8 folds, t_block 16,384 and the
+    ragged 20,480; the A/B at 512 × 128 × 2,048; the crash gate killed
+    after block 1) with per-phase traces; every gate of the driver, the
+    A/B's ``kernel_tier`` ``cuda`` with λ equal, the fit trace's coverage
+    through ``launch/obs_report.py``; fit seconds, device and RSS peaks
+    (and the RSS right after CUDA initialisation) under ``--cap-mb``, the
+    A/B's roofline placement at the H100's peaks; the children's launches
+    come back in their result lines.  Then both fits again in this process
+    on the driver's store with its configuration, every
+    ``xty_folds_masked`` launch (68 and 56) held against
+    ``ref.xty_folds_masked`` on its own operands, λ equal to the driver's
+    and W bitwise equal to the driver's bundle (these launches are checks
+    and do not count).  ~1.3 GB of disk under ``build/``, deleted at the
+    end.  (c) ``python -m repro_torch.launch.serve`` on the
+    checked-in trace (6 bundles, p 64, t 96), then with two workers and
+    worker 0 killed after its first flush: the lease gate and the drain.
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -251,7 +282,7 @@ WB_WINDOW = (10_000, 30_000)
 MOR_TARGETS, MOR_TASKWISE = 256, 64
 # Phase 15: banded ridge on the parcels cell, the paper's VGG16-FC2 at
 # 4 TR lags (bands of 4,096), 3 folds; 4 band candidates instead of the
-# default 16 (each candidate pays 3 + 0 eighs of 16,384², ~2.5 s each).
+# default 16 (each candidate pays 3 eighs of 16,384², ~2.5 s each).
 BANDS = (4096,) * 4
 BANDED_CANDIDATES = 4
 # Phase 16: four parcels-width bundles served through the fleet tier.
@@ -268,6 +299,16 @@ PEARSON_TOL = 1e-4
 COVERAGE_GATE = 0.95
 WB_KILL_AFTER, WB13_KILL_AFTER, KILLED = 8, 1, 42
 WB_UNINTERRUPTED_S = 310.44
+# Phase 17: the encode driver's backbone mode at zamba2-2.7b's full width
+# and depth (n rows of 16-token sequences: launch/encode.py's seq), and the
+# whole-brain driver's cap (--cap-mb): 1,280 MB, the cap of the
+# reference's own run at this shape (BENCH_wholebrain.json, whose fits
+# peaked at 1,119.7 and 1,256.5 MB of RSS), still below the ~1,408 MB the
+# unblocked path needs.  On the card it caps the device peak and the RSS a
+# child adds after initialising the CUDA stack (5,038 MB of RSS on its
+# own on the card's host, which counts mapped library pages as resident).
+DRV_BACKBONE, DRV_N, DRV_SEQ = "zamba2-2.7b", 8192, 16
+WB_DRIVER_CAP_MB = 1280.0
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -499,16 +540,6 @@ def phase_env() -> dict:
            else "already built")
     print(f"[env] kernels built+loaded in {build_s:.2f} s ({how}): "
           f"{path.name}")
-    if log:
-        # The same sources in one serial nvcc call, for comparison only.
-        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            t0 = time.perf_counter()
-            _build._run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                         "-o", str(Path(tmp) / "serial.so"),
-                         *map(str, _build._sources())])
-            serial_s = time.perf_counter() - t0
-        print(f"[env] the same sources in one serial nvcc call: "
-              f"{serial_s:.2f} s [{card}]")
     for line in log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "Performance Loss" in line):
@@ -1024,7 +1055,9 @@ def phase_streamed(card: str) -> int:
     from repro_torch.data import fmri
     from repro_torch.data.store import RunStore
     from repro_torch.encoding import BrainEncoder, EncoderConfig, pipeline
+    from repro_torch.encoding.estimator import EncodingReport
     from repro_torch.kernels import gram
+    from repro_torch.launch import obs_report
     from repro_torch.resilience import FaultPolicy
     from repro_torch.resilience import faultsim
 
@@ -1098,28 +1131,37 @@ def phase_streamed(card: str) -> int:
         del state, rep, std
         free()
 
-        # (b) budgeted fit(store=) → chunked, traced, with the recompile
-        # sentinel armed; against the in-memory fit below.
+        # (b) the budgeted fit(store=) through the driver a lab runs,
+        # ``launch/encode.py --store``, in this process: chunked, traced,
+        # with the recompile sentinel armed; its weights from its bundle.
         budget = 4 << 30
         cfg_b = EncoderConfig(device_memory_budget=budget)
-        gram.reset_launches()
-        with _strict(), _traced() as tracer:
-            t0 = time.perf_counter()
-            enc = BrainEncoder(cfg_b, device="cuda").fit(store=store)
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        launches_b = dict(gram.LAUNCHES)
-        d = enc.report_.decision
-        print(f"[streamed] fit(store=) with device_memory_budget="
+        bundle = os.path.join(root, "driver_bundle")
+        trace = os.path.join(root, "driver_trace.jsonl")
+        with _strict():
+            out, launches_b, fit_s = _encode_in_process(
+                "encode", ["--store", root, "--budget-mb",
+                             str(budget / 2**20), "--save-bundle", bundle,
+                             "--trace-out", trace, "--device", "cuda"], card,
+                phase="streamed")
+        for name in ("bundle.json", "report.json"):
+            check(os.path.exists(os.path.join(bundle, name)),
+                  f"encode --save-bundle wrote no {name}")
+        with open(os.path.join(bundle, "report.json")) as f:
+            rep_b = EncodingReport.from_json(f.read())
+        d = rep_b.decision
+        print(f"[streamed] encode --store with device_memory_budget="
               f"{budget / 2**30:g} GiB (resident set "
               f"{store.nbytes_resident() / 2**30:.2f} GiB): decision "
               f"{d.solver}/{d.method} kernel tier {d.use_pallas}; launches "
               f"{launches_b}; {fit_s:.2f} s traced, REPRO_OBS_STRICT=1 "
               f"[{card}]")
-        check(d.method == "chunked" and d.use_pallas, f"budgeted decision {d}")
-        check(launches_b["xty_folds_masked"] == n_chunks,
-              f"fit(store=) launches {launches_b}")
-        events = tracer.events()
+        check(d.method == "chunked" and d.use_pallas
+              and "method=chunked" in out, f"budgeted decision {d}")
+        check(launches_b["xty_folds_masked"] == n_chunks
+              and sum(launches_b.values()) == n_chunks,
+              f"encode --store launches {launches_b}, want {n_chunks} masked")
+        events = obs_report.load_events(trace)
         root_ev, cov = _print_spans("streamed", events, card)
         n_st, stage_s = _span_s(events, "prefetch.stage")
         n_wt, wait_s = _span_s(events, "prefetch.wait")
@@ -1133,14 +1175,14 @@ def phase_streamed(card: str) -> int:
         check(root_ev["name"] == "fit" and cov >= COVERAGE_GATE,
               f"fit root coverage {cov:.3f} < {COVERAGE_GATE}")
         check(n_st == n_chunks, f"{n_st} prefetch.stage spans")
-        W_s, lam_s = enc.weights_.cpu(), enc.report_.best_lambda[0]
-        cv_s = enc.report_.cv_scores
-        del enc
-        free()
+        loaded = BrainEncoder.load(bundle, device="cuda")
+        W_s, lam_s = loaded.weights_.cpu(), rep_b.best_lambda[0]
+        cv_s = rep_b.cv_scores
 
-        # (c) the same fit through faultsim.wrap_store, with transient
-        # faults planned on a shard mmap and on two chunk reads: retried
-        # (virtual-time backoff), bitwise the same fit, no new signature.
+        # (c) the same budgeted fit(store=), called directly, through
+        # faultsim.wrap_store, with transient faults planned on a shard
+        # mmap and on two chunk reads: retried (virtual-time backoff),
+        # bitwise the driver's fit, no new signature.
         store.fault_policy = FaultPolicy(max_attempts=3,
                                          seed=6).with_virtual_time()
         inj = faultsim.FaultInjector(seed=6)
@@ -1160,15 +1202,21 @@ def phase_streamed(card: str) -> int:
         retries = _counter_deltas(before, "io_retries")
         giveups = _counter_deltas(before, "io_giveups")
         fired = {op: inj.fired(op) for op in ("store.mmap", "store.chunk")}
-        same = (torch.equal(enc.weights_.cpu(), W_s)
+        W_c = enc.weights_.cpu()
+        dw = float((W_c - W_s).abs().max())
+        tol = 2e-4 + 1e-4 * float(W_c.abs().max())
+        same = (torch.equal(W_c, W_s)
                 and enc.report_.best_lambda[0] == lam_s
                 and np.array_equal(enc.report_.cv_scores, cv_s))
         print(f"[streamed] fit(store=) under injected faults {fired}: "
               f"{retries} retried, {giveups or 'no'} give-ups; launches "
               f"{launches_c}; new signatures "
-              f"{enc.stream_stats_['compile_count']}; λ, W and CV curve "
-              f"bitwise equal to the unfaulted fit: {same}; {fault_s:.2f} s "
+              f"{enc.stream_stats_['compile_count']}; {fault_s:.2f} s "
               f"[{card}]")
+        print(f"[streamed] the driver against the faulted budgeted "
+              f"fit(store=): λ {lam_s:g} vs {enc.report_.best_lambda[0]:g}, "
+              f"max|ΔW| {dw:.3e} (limit {tol:.3e} = 2e-4 + 1e-4·max|W|); λ, "
+              f"W and CV curve bitwise equal: {same} [{card}]")
         check(fired == {"store.mmap": 1, "store.chunk": 2}, f"fired {fired}")
         check(retries == {"io_retries{op=store.mmap}": 1.0,
                           "io_retries{op=prefetch.read}": 2.0} and not giveups,
@@ -1177,8 +1225,20 @@ def phase_streamed(card: str) -> int:
               and enc.stream_stats_["compile_count"] == 0,
               f"faulted fit launches {launches_c}, "
               f"{enc.stream_stats_['compile_count']} new signatures")
-        check(same, "the faulted fit differs from the unfaulted one")
-        del enc
+        check(enc.report_.best_lambda[0] == lam_s,
+              f"λ driver {lam_s} != budgeted fit {enc.report_.best_lambda[0]}")
+        check(np.isfinite(dw) and dw <= tol, f"driver max|ΔW| {dw} > {tol}")
+        check(same, "the faulted fit differs from the driver's unfaulted one")
+        # The driver's bundle predicts the held-out rows as the fit does.
+        got, want = loaded.predict(X_test), enc.predict(X_test)
+        dp = float((got - want).abs().max())
+        ptol = 2e-4 + 1e-4 * float(want.abs().max())
+        print(f"[streamed] the driver's bundle against the fit on the "
+              f"{X_test.shape[0]} held-out rows: max|Δ| {dp:.3e} (limit "
+              f"{ptol:.3e}; bitwise {bool(torch.equal(got, want))}) [{card}]")
+        check(np.isfinite(dp) and dp <= ptol, f"bundle predictions max|Δ| "
+              f"{dp} > {ptol}")
+        del enc, loaded, got, want, W_c
         free()
         mem = BrainEncoder(device="cuda").fit(*store.load())
         W_m, lam_m = mem.weights_.cpu(), mem.report_.best_lambda[0]
@@ -1193,7 +1253,7 @@ def phase_streamed(card: str) -> int:
         check(np.isfinite(dw) and dw <= tol, f"max|ΔW| {dw} > {tol}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return launches["xty_folds_masked"]
+    return launches["xty_folds_masked"] + launches_b["xty_folds_masked"]
 
 
 # --------------------------------------------------------------------------
@@ -3095,18 +3155,291 @@ def phase_serving(card: str) -> None:
         free()
 
 
+# --------------------------------------------------------------------------
+# Phase 17
+# --------------------------------------------------------------------------
+def _run_driver(tag: str, argv: list[str], card: str) -> str:
+    """``python -m repro_torch.launch.<argv>`` in a new process with the
+    recompile sentinel armed; it must exit 0.  → its standard output."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", *argv], cwd=ROOT,
+        env=dict(os.environ, REPRO_OBS_STRICT="1",
+                 PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in out.stdout.splitlines():
+        if not line.startswith("WHOLEBRAIN_RESULT"):
+            print(f"[drivers]   {tag}: {line}")
+    if out.returncode != 0:
+        print(out.stderr[-6000:], file=sys.stderr)
+    check(out.returncode == 0, f"{tag}: python -m {' '.join(argv)} exited "
+          f"{out.returncode}")
+    print(f"[drivers] {tag}: python -m {' '.join(argv)} exited 0 in "
+          f"{wall:.2f} s [{card}]")
+    return out.stdout
+
+
+def _encode_in_process(tag: str, argv: list[str], card: str,
+                       phase: str = "drivers", patches=()
+                       ) -> tuple[str, dict, float]:
+    """``launch/encode.py``'s ``main(argv)`` in this process, its kernel
+    launches counted from zero, under ``patches`` (``_patched``'s
+    triples).  → (its output, the launches, its seconds)."""
+    import io
+    import torch
+    from repro_torch.launch import encode
+
+    out = io.StringIO()
+    _reset_counters()
+    with _patched(*patches), contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        encode.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _counters()
+    for line in out.getvalue().splitlines():
+        print(f"[{phase}]   {tag}: {line}")
+    print(f"[{phase}] {tag}: encode {' '.join(argv)}: {wall:.2f} s, "
+          f"launches {launches} [{card}]")
+    return out.getvalue(), launches, wall
+
+
+def phase_drivers(card: str) -> dict:
+    """Phase 17: the drivers a lab runs, from their command lines.
+    → kernel launches of the runs this process counts."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.store import RunStore
+    from repro_torch.encoding import EncoderConfig
+    from repro_torch.encoding.dispatch import resolve
+    from repro_torch.kernels import ops, ref, ssd
+    from repro_torch.serving_encoders import EncoderBundle
+    from repro_torch.wholebrain import fit_wholebrain
+
+    total = {}
+    held = []
+
+    def holding(name, kernel, plain):
+        """``kernel`` with each launch's output held against ``plain`` on
+        the same operands (``_compare``), its shapes and error kept."""
+        def wrapper(x, y, third):
+            out = kernel(x, y, third)
+            s = len(third) if name == "xty_folds" else third.shape[1]
+            shapes = f"{name} x={tuple(x.shape)} z={tuple(y.shape)} s={s}"
+            err, scale = _compare(shapes, out, plain(x, y, third), "float32")
+            held.append((shapes, err, scale))
+            return out
+        return wrapper
+
+    def print_held(tag: str, want: int) -> None:
+        shapes = sorted({h[0] for h in held})
+        worst = max(held, key=lambda h: h[1] / max(h[2], 1e-30))
+        print(f"[drivers] {tag}: every one of {len(held)} launches held "
+              f"against its plain version on its own operands ({len(shapes)} "
+              f"shapes: {'; '.join(shapes)}): worst max abs err "
+              f"{worst[1]:.3e} of max|plain| {worst[2]:.3e} (tol "
+              f"{REL_TOL:g}·max|plain|) [{card}]")
+        check(len(held) == want, f"{tag}: {len(held)} launches held, want "
+              f"{want}")
+        held.clear()
+
+    hold_folds = (ops, "xty_folds",
+                  holding("xty_folds", ops.xty_folds, ref.xty_folds))
+    # (a) The backbone mode feeds 16-token sequences: ssd_intra at Q = 16,
+    # zamba2-2.7b's H and P, one chunk per sequence, held against its plain
+    # version first (f32 operands, as mamba_apply passes them, and bf16).
+    cfg = configs.for_device(configs.get_config(DRV_BACKBONE), "cuda")
+    check(cfg.ssm.use_kernel and cfg.flash_kernel, "configs.for_device: "
+          "the kernel tier is off on a CUDA device")
+    h, pd = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    n_seq = DRV_N // DRV_SEQ
+    g = torch.Generator("cuda").manual_seed(17)
+    cb = torch.randn(n_seq, DRV_SEQ, DRV_SEQ, device="cuda",
+                     generator=g) / DRV_SEQ ** 0.5
+    la = torch.cumsum(-torch.rand(n_seq, DRV_SEQ, h, device="cuda",
+                                  generator=g) * 0.1, dim=1)
+    x = torch.randn(n_seq, DRV_SEQ, h, pd, device="cuda", generator=g)
+    for dt in (torch.float32, torch.bfloat16):
+        ops_ = [a.to(dt) for a in (cb, la, x)]
+        err = _close(f"ssd_intra N={n_seq} Q={DRV_SEQ} H={h} P={pd} {dt}",
+                     ssd.ssd_intra(*ops_), ref.ssd_intra(*ops_))
+        print(f"[drivers] ssd_intra at the driver's chunk (N={n_seq}, "
+              f"Q={DRV_SEQ}, H={h}, P={pd}, {str(dt)[6:]} operands) against "
+              f"ref.ssd_intra: max abs err {err:.3e} [{card}]")
+    del cb, la, x, ops_
+    free()
+    n_mamba = cfg.n_repeats * sum(k == "mamba" for k in cfg.pattern)
+    out, launches, _ = _encode_in_process(
+        "zamba2", ["--backbone", DRV_BACKBONE, "--n", str(DRV_N),
+                   "--targets", str(PARCELS), "--device", "cuda"], card,
+        patches=[hold_folds])
+    print_held("zamba2 encode's xty_folds", 1)
+    check(f"X({DRV_N}, {cfg.d_model})" in out, "zamba2 feature shape")
+    check("aligned encoding is significant" in out,
+          "zamba2 features: not significant")
+    want = dict({k: 0 for k in launches}, ssd_intra=n_mamba, xty_folds=1)
+    check(launches == want and n_mamba == 54,
+          f"zamba2 encode launches {launches}, want {want}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    free()
+    out, launches, _ = _encode_in_process("vgg16", ["--device", "cuda"],
+                                          card, patches=[hold_folds])
+    print_held("vgg16 encode's xty_folds", 1)
+    check("X(512, 128)" in out and "Y(512, 256)" in out, "vgg16 shapes")
+    check(launches == dict({k: 0 for k in launches}, xty_folds=1),
+          f"vgg16 encode launches {launches}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    free()
+
+    # (b) The whole-brain driver at the reference's full shape, each phase
+    # its own process (their launches come back in the result lines).
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    need = 1024 * (128 + 262_144) * 4 + 128 * 262_144 * 4 + (1 << 30)
+    free_b = shutil.disk_usage(build).free
+    print(f"[drivers] whole-brain driver: store and bundle "
+          f"{(need - (1 << 30)) / 1e9:.2f} GB under {build} "
+          f"({free_b / 1e9:.1f} GB free)")
+    check(free_b > need, f"phase 17 needs {need / 1e9:.1f} GB of disk "
+          f"under {build}, which has {free_b / 1e9:.1f} GB free")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_", dir=build))
+    try:
+        wb_out = root / "BENCH_wholebrain_torch.json"
+        _run_driver("wholebrain", [
+            "repro_torch.launch.wholebrain", "--device", "cuda",
+            "--workdir", str(root / "wb"), "--out", str(wb_out),
+            "--cap-mb", str(WB_DRIVER_CAP_MB),
+            "--trace-out", str(root / "wb.jsonl"),
+            "--metrics-out", str(root / "wb.json")], card)
+        doc = json.loads(wb_out.read_text())
+        _run_driver("obs_report", [
+            "repro_torch.launch.obs_report", str(root / "wb.fit16384.jsonl"),
+            "--assert-coverage", str(COVERAGE_GATE)], card)
+        for fit in doc["fit_vs_t_block"]:
+            print(f"[drivers] whole-brain fit t_block={fit['t_block']}: "
+                  f"{fit['wall_s']} s, {fit['n_blocks']} blocks, device peak "
+                  f"{fit['device_peak_mb']} MB and RSS held "
+                  f"{fit['rss_held_mb']} MB (peak {fit['peak_rss_mb']} MB, "
+                  f"{fit['cuda_init_rss_mb']} MB of it right after the CUDA "
+                  f"stack's initialisation, {fit['cuda_context_rss_mb']} MB "
+                  f"right after torch.cuda.init() and the context: "
+                  f"{fit['rss_over_context_mb']} MB over the bare context) "
+                  f"under the {doc['rss_cap_mb']} MB cap "
+                  f"(the unblocked path {fit['unblocked_stats_mb']} MB), "
+                  f"launches {fit['kernel_launches']} [{card}]")
+            check(fit["use_pallas"]
+                  and max(fit["device_peak_mb"], fit["rss_held_mb"])
+                  < doc["rss_cap_mb"] < fit["unblocked_stats_mb"],
+                  f"whole-brain fit {fit}")
+            check(fit["kernel_launches"]["xty_folds_masked"]
+                  == -(-doc["n"] // doc["chunk_rows"]) * (1 + fit["n_blocks"]),
+                  f"whole-brain fit launches {fit['kernel_launches']}")
+        ab, crash = doc["fused_ab"], doc["crash_resume"]
+        roof = ab["roofline"]
+        print(f"[drivers] whole-brain A/B {ab['n']}x{ab['p']}x{ab['t']} "
+              f"(t_block {ab['t_block']}): plain {ab['unfused_runs_s']} s, "
+              f"kernel {ab['fused_runs_s']} s, λ equal; the faster "
+              f"{min(ab['unfused_s'], ab['fused_s'])} s is "
+              f"{roof['peak_fraction']:.3e} of the H100's 67 TFLOP/s f32 "
+              f"peak ({roof['model_flops']:.3e} FLOPs, "
+              f"{roof['flop_per_byte']:.1f} FLOP/byte: "
+              f"{roof['bottleneck']}-bound) [{card}]")
+        check(ab["kernel_tier"] == "cuda" and ab["lambda_match"],
+              f"whole-brain A/B {ab}")
+        print(f"[drivers] whole-brain crash gate: killed after block "
+              f"{crash['kill_after_block']} of {crash['n_blocks']}, resumed "
+              f"{crash['resumed']['blocks_replayed']} replayed + "
+              f"{crash['resumed']['blocks_streamed']} streamed, "
+              f"{crash['w_shards_bitwise']} W shards bitwise, faulty run "
+              f"{crash['faulty']['io_retries']} retries; fits "
+              f"{crash['ref']['wall_s']} / {crash['resumed']['wall_s']} / "
+              f"{crash['faulty']['wall_s']} s; serve paged "
+              f"{doc['serve']['shards_paged']}/{doc['serve']['weight_shards']}"
+              f" shards in {doc['serve']['wall_s']} s [{card}]")
+        counted = [*doc["fit_vs_t_block"], ab, crash["ref"],
+                   crash["resumed"], crash["faulty"]]
+        for res in counted:
+            for k, v in res["kernel_launches"].items():
+                total[k] = total.get(k, 0) + v
+        # The driver's fits again in this process, on its store and with
+        # its configuration, every xty_folds_masked launch held against the
+        # plain version on its own operands; λ equal to the driver's, and W
+        # bitwise equal to the bundle the driver's first fit wrote.  These
+        # launches are checks: they do not count.
+        n, p, t = doc["n"], doc["p"], doc["t"]
+        store = RunStore.open(str(root / "wb" / f"subject_{n}x{p}x{t}"))
+        hold_masked = (ops, "xty_folds_masked",
+                       holding("xty_folds_masked", ops.xty_folds_masked,
+                               ref.xty_folds_masked))
+        for fit in doc["fit_vs_t_block"]:
+            cfg_f = EncoderConfig(
+                n_folds=doc["n_folds"], chunk_rows=doc["chunk_rows"],
+                device_memory_budget=int(doc["rss_cap_mb"] * 2**20),
+                target_block=fit["t_block"])
+            dec = resolve(cfg_f, n, p, t, 1, device="cuda")
+            check(dec.method == "colblocked", f"decision {dec}")
+            t0 = time.perf_counter()
+            with _patched(hold_masked):
+                res = fit_wholebrain(store, cfg_f, t_block=dec.target_block,
+                                     collect=True, device="cuda")
+            refit_s = time.perf_counter() - t0
+            print_held(f"whole-brain fit t_block={fit['t_block']} again in "
+                       f"this process ({refit_s:.2f} s with the checks)",
+                       fit["kernel_launches"]["xty_folds_masked"])
+            lam = float(np.asarray(res.best_lambda)[0])
+            check(lam == fit["best_lambda"], f"λ {lam} != the driver's "
+                  f"{fit['best_lambda']} at t_block {fit['t_block']}")
+            if fit["saved_bundle"]:
+                bundle = EncoderBundle.open(str(root / "wb" / "bundle"))
+                bounds = bundle.weight_shard_bounds()
+                same = all(np.array_equal(bundle.load_weight_shard(i),
+                                          res.weights[:, lo:hi])
+                           for i, (lo, hi) in enumerate(bounds))
+                print(f"[drivers] the driver's bundle: {len(bounds)} weight "
+                      f"shards bitwise equal to this fit's W: {same} "
+                      f"[{card}]")
+                check(same, "the driver's bundle differs from the held fit")
+            del res
+            free()
+
+        # (c) The serving driver: the checked-in trace, then the faults
+        # lane's two-worker drain with worker 0 killed.
+        trace = ROOT / "benchmarks" / "traces" / "mixed_v1.json"
+        out = _run_driver("serve replay", [
+            "repro_torch.launch.serve", "--device", "cuda",
+            "--replay-trace", str(trace),
+            "--bundle-dir", str(root / "fleet_a")], card)
+        check("0 backpressure rejections, 0 faults" in out,
+              "trace replay rejected or faulted")
+        out = _run_driver("serve fleet", [
+            "repro_torch.launch.serve", "--device", "cuda", "--encoders",
+            "4", "--bundle-dir", str(root / "fleet_b"), "--workers", "2",
+            "--kill-worker", "0", "--n", "128", "--targets", "64",
+            "--serve-steps", "3", "--requests-per-step", "4"], card)
+        check("lease gate: w0 SIGKILLed" in out
+              and "2 workers drained cleanly" in out,
+              "fleet drain: no lease gate line")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def _selected(argv: list[str]) -> set[int] | None:
     """``--only 14,16`` runs phase 1 and the listed independent phases
-    (6 and 12 to 16) and prints no result lines: a quick check while
+    (6 and 12 to 17) and prints no result lines: a quick check while
     working on them.  With no arguments every phase runs."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
-                         "(N in 6, 12..16)")
+                         "(N in 6, 12..17)")
     only = {int(v) for v in argv[1].split(",")}
-    if not only <= {6, 12, 13, 14, 15, 16}:
-        raise SystemExit(f"--only takes phases 6 and 12 to 16, got "
+    if not only <= {6, 12, 13, 14, 15, 16, 17}:
+        raise SystemExit(f"--only takes phases 6 and 12 to 17, got "
                          f"{sorted(only)}")
     return only
 
@@ -3127,7 +3460,7 @@ def main(argv: list[str]) -> int:
         for n, phase in ((6, phase_streamed), (12, phase_wholebrain),
                          (13, phase_wholebrain_parity),
                          (14, phase_mor), (15, phase_banded),
-                         (16, phase_serving)):
+                         (16, phase_serving), (17, phase_drivers)):
             if n in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -3161,6 +3494,10 @@ def main(argv: list[str]) -> int:
     launches["xty"] += phase_mor(card)
     phase_banded(card)
     phase_serving(card)
+    t0 = time.perf_counter()
+    for k, v in phase_drivers(card).items():
+        launches[k] += v
+    print(f"[done] phase 17 passed in {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("split_engine.cu",
                            "src/repro/kernels/gram.py:158"),

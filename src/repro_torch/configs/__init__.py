@@ -5,11 +5,16 @@ architecture of the reference; the port carries the configs of the
 families it runs (``ssm`` and ``hybrid`` through ``HybridLM``):
 ``mamba2-130m`` and ``zamba2-2.7b``.  ``smoke(cfg)`` derives the reduced
 same-family variant of the CPU tests (≤2 pattern slots, d_model 256).
+``for_device(cfg, device)`` turns the hand-written kernel tier on iff the
+device is CUDA, the rule ``EncoderConfig.use_pallas=None`` applies to
+the fit.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -42,6 +47,18 @@ def get_config(arch: str) -> ModelConfig:
             f"item 12")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
+
+
+def for_device(cfg: ModelConfig, device: torch.device | str) -> ModelConfig:
+    """``cfg`` with the hand-written kernels (the SSD within-chunk term, the
+    flash attention path) on iff ``device`` is CUDA, as the fit's kernel
+    tier follows ``EncoderConfig.use_pallas=None``.  The SSD kernel takes
+    ``n_groups == 1`` only; other SSM configs keep the einsum chain."""
+    on = torch.device(device).type == "cuda"
+    ssm = cfg.ssm
+    if ssm is not None and ssm.n_groups == 1:
+        ssm = dataclasses.replace(ssm, use_kernel=on)
+    return dataclasses.replace(cfg, ssm=ssm, flash_kernel=on)
 
 
 def smoke(cfg: ModelConfig) -> ModelConfig:

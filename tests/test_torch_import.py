@@ -54,7 +54,11 @@ def test_port_has_every_slice_module():
               "repro_torch.obs.metrics", "repro_torch.obs.trace",
               "repro_torch.obs.sentinel", "repro_torch.resilience.journal",
               "repro_torch.resilience.faultsim",
-              "repro_torch.launch.obs_report"):
+              "repro_torch.launch.obs_report",
+              "repro_torch.launch.obscli", "repro_torch.launch.encode",
+              "repro_torch.launch.wholebrain", "repro_torch.launch.serve",
+              "repro_torch.launch.roofline_report",
+              "repro_torch.configs.vgg16_ridge"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):

@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs seventeen phases, each of which
+nvcc into ``build/kernels/``, then runs eighteen phases, each of which
 raises (exit code 1) on a failed check (``--only 14,16`` runs the build
-and just the listed phases, 6 and 12 to 17, and prints no result lines):
+and just the listed phases, 6 and 12 to 18, and prints no result lines):
 
 1. Environment: versions, TF32 switches (all off), card name and power
    limit, kernel build time (one nvcc per source, in parallel) and the
@@ -146,7 +146,7 @@ and just the listed phases, 6 and 12 to 17, and prints no result lines):
     bitwise equal to the uninterrupted fit; a journal of another
     ``t_block`` is refused (``JournalError``).
 14. The MOR baseline at the ``whole_brain_mor`` width (n=1,000,
-    p=16,384; t cut from 2,000 to 256): ``resolve`` gives plan ``mor``,
+    p=16,384; t cut from 2,000 to 128): ``resolve`` gives plan ``mor``,
     method ``dual``, one target shard; ``BrainEncoder(solver="mor").fit``
     must launch ``xty`` t times the count of one target's fit, equal the
     plain tier (rtol 1e-4, atol 2e-4), and ``mor_fit_taskwise`` must equal
@@ -154,7 +154,7 @@ and just the listed phases, 6 and 12 to 17, and prints no result lines):
     ``ridge_cv`` on the same targets and the measured MOR/mutualised
     factor beside ``complexity.mor_overhead_factor``.
 15. Banded ridge on the ``parcels`` cell (n=69,202, p=16,384 as the
-    paper's 4 TR lags × 4,096 VGG16-FC2 features, t=444, 3 folds; 4 band
+    paper's 4 TR lags × 4,096 VGG16-FC2 features, t=444, 3 folds; 2 band
     candidates instead of 16): dispatch picks ``banded``, W finite, the
     winning band λ among the drawn candidates, no kernel launched; the
     fit split into Grams, eighs and the rest; then equal band λ against
@@ -201,6 +201,26 @@ and just the listed phases, 6 and 12 to 17, and prints no result lines):
     end.  (c) ``python -m repro_torch.launch.serve`` on the
     checked-in trace (6 bundles, p 64, t 96), then with two workers and
     worker 0 killed after its first flush: the lease gate and the drain.
+18. Multi-device over ``torch.distributed`` (``--only 18``; targets
+    standardized within each CV fold, so B-MOR's pooled r² and
+    ``ridge_cv``'s mean per-target r² are one curve).  (a) A NCCL world
+    of one rank in this process: ``BrainEncoder(solver="bmor",
+    data_shards=1, target_shards=1)`` at ``parcels`` (one ``xty_folds``)
+    and ``solver="bmor_dual"`` at ``whole_brain_mor`` (one ``xty``), each
+    launch held against its plain version, each fit against the
+    one-device ``ridge_cv`` of the same operands (λ equal, W and CV curve
+    within rtol 1e-4/atol 2e-4).  (b) Four gloo ranks sharing the card
+    (``python -m torch.distributed.run`` of ``chip_smoke.py
+    --dist-child``): dual B-MOR 1×4 at ``whole_brain_mor``, each batch
+    against the one-device dual solve at its λ; primal B-MOR 2×2 on
+    36,864 × 16,384 rows with 444 targets, 3 folds.  (c) Two gloo ranks:
+    the sharded streamed ``fit(store=)`` of the same rows from a
+    ``RunStore`` (``chunked`` over 2 data shards, 4,096-row chunks).  One
+    device then checks each 2×2 batch against ``ridge_cv`` of its
+    columns and (c) against the in-memory fit.  Rank 0 holds every
+    launch against its plain version; the ranks' launches, seconds and
+    each ``all_reduce``/gather's bytes and seconds are printed (gloo
+    moves CUDA tensors through host memory: not NVLink's rates).
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -277,14 +297,16 @@ WB_SMALL = dict(n=4_000, p=2_048, t=6_728, chunk_rows=1_024, t_block=2_048)
 # that spans two of the bundle's 17 weight shards.
 WB_WINDOW = (10_000, 30_000)
 # Phase 14: MOR pays one RidgeCV per target, so the whole_brain_mor cell's
-# 2,000 targets are cut to the first 256; the taskwise loop is held
-# bitwise against mor_fit on the first 64 of them.
-MOR_TARGETS, MOR_TASKWISE = 256, 64
+# 2,000 targets are cut to the first 128 (256 until phase 18 needed the
+# time); the taskwise loop is held bitwise against mor_fit on the first
+# 64 of them.
+MOR_TARGETS, MOR_TASKWISE = 128, 64
 # Phase 15: banded ridge on the parcels cell, the paper's VGG16-FC2 at
-# 4 TR lags (bands of 4,096), 3 folds; 4 band candidates instead of the
-# default 16 (each candidate pays 3 eighs of 16,384², ~2.5 s each).
+# 4 TR lags (bands of 4,096), 3 folds; 2 band candidates instead of the
+# default 16 (each candidate pays 3 eighs of 16,384², ~2.5 s each; 4
+# until phase 18 needed the time).
 BANDS = (4096,) * 4
-BANDED_CANDIDATES = 4
+BANDED_CANDIDATES = 2
 # Phase 16: four parcels-width bundles served through the fleet tier.
 SERVE_BUCKETS = (32, 128)
 SERVE_MODELS, SERVE_REQUESTS, SERVE_SLOTS = 4, 64, 4
@@ -309,6 +331,21 @@ WB_UNINTERRUPTED_S = 310.44
 # own on the card's host, which counts mapped library pages as resident).
 DRV_BACKBONE, DRV_N, DRV_SEQ = "zamba2-2.7b", 8192, 16
 WB_DRIVER_CAP_MB = 1280.0
+# Phase 18: multi-device over torch.distributed.  (a) runs the parcels and
+# whole_brain_mor cells uncut (5 folds) in a NCCL world of one; (b)'s
+# primal 2×2 and (c), gloo ranks sharing cuda:0, fit parcels' p and t on
+# DIST_N rows with DIST_FOLDS-fold CV: every rank pays one eigh of
+# 16,384² per split and four ranks time-slice one card, so 3 folds (the
+# reference's own multi-device checks use 3 and 4) cut (b)'s 24 eighs to
+# 16 and (c)'s 12 to 8; DIST_N keeps each training split 1.5 p rows, away
+# from the near-singular Gram of n_train ≈ p, where f32 CV scores of the
+# pooled and trace-identity forms drift apart.  The streamed fit reads
+# DIST_CHUNK_ROWS rows a chunk; every process group fails after
+# DIST_TIMEOUT_S instead of hanging.  DIST_TOL is the port's f32 parity
+# tolerance (tests/test_kernels.py::_tol).
+DIST_N, DIST_FOLDS, DIST_CHUNK_ROWS = 36_864, 3, 4_096
+DIST_TIMEOUT_S = 600
+DIST_TOL = dict(rtol=1e-4, atol=2e-4)
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -3428,18 +3465,471 @@ def phase_drivers(card: str) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 18
+# --------------------------------------------------------------------------
+def _fold_standardized(Y, n_folds: int):
+    """``Y`` with each CV fold's rows centred and scaled to unit variance
+    per column (in place).  Every target then has the same ``ss_tot`` in
+    every validation fold, so Algorithm 1's pooled r² (B-MOR's CV score,
+    ``1 − Σ ss_res / Σ ss_tot``) and ``ridge_cv``'s mean of per-target r²
+    are the same function of λ, and the two CV curves can be held
+    against each other."""
+    from repro_torch.core.foldstats import fold_bounds
+    for lo, hi in fold_bounds(Y.shape[0], n_folds):
+        blk = Y[lo:hi]
+        blk -= blk.mean(0, keepdim=True)
+        blk /= blk.std(0, correction=0, keepdim=True)
+    return Y
+
+
+def _dist_data(which: str, device):
+    """The operands of phase 18, made on ``device`` from a seed: the
+    ``whole_brain_mor`` and ``parcels`` cells (``DIST_N`` rows for the
+    gloo runs), targets standardized within each fold of their CV."""
+    import torch
+    from repro_torch.core import complexity
+    from repro_torch.data import fmri
+    from repro_torch.encoding import EncoderConfig
+
+    k = EncoderConfig().n_folds
+    name, n, seed, folds = {
+        "dual": ("whole_brain_mor", None, 181, k),
+        "parcels": ("parcels", None, 182, k),
+        "cut": ("parcels", DIST_N, 183, DIST_FOLDS)}[which]
+    w = complexity.PAPER_WORKLOADS[name]
+    spec = fmri.SubjectSpec(n=n or w.n, p=w.p, t=w.t)
+    g = torch.Generator(torch.device(device).type).manual_seed(seed)
+    X, Y, _ = fmri.generate(spec, g, device=device)
+    return X, _fold_standardized(Y, folds)
+
+
+def _holding_all(held: list):
+    """``_patched`` triples that hold every ``xty_folds``, ``xty`` and
+    ``xty_folds_masked`` launch against its plain version on its own
+    operands; each appends ``(shapes, max abs err, max|plain|)`` to
+    ``held``.  The plain calls launch nothing."""
+    from repro_torch.kernels import ops, ref
+
+    def holding(name, kernel, plain):
+        def wrapper(x, y, *rest):
+            out = kernel(x, y, *rest)
+            third = f" s={len(rest[0]) if name == 'xty_folds' else rest[0].shape[1]}" \
+                if rest else ""
+            shapes = f"{name} x={tuple(x.shape)} z={tuple(y.shape)}{third}"
+            err, scale = _compare(shapes, out, plain(x, y, *rest), "float32")
+            held.append((shapes, err, scale))
+            return out
+        return wrapper
+
+    return [(ops, name, holding(name, getattr(ops, name), getattr(ref, name)))
+            for name in ("xty_folds", "xty", "xty_folds_masked")]
+
+
+def _collectives(events) -> list[dict]:
+    """The ``dist.psum``/``dist.gather`` spans of a trace: op, axis, bytes
+    and seconds (the span waits for the card before and after)."""
+    return [{"op": e["name"].split(".")[1], "axis": e["attrs"]["axis"],
+             "bytes": e["attrs"]["bytes"], "s": e["dur_us"] / 1e6}
+            for e in events if e["name"] in ("dist.psum", "dist.gather")
+            and not e.get("instant")]
+
+
+def _dist_child(spec_path: str) -> int:
+    """One rank of phase 18's gloo worlds (started by
+    ``torch.distributed.run``): ``spec["world"]`` "b" fits dual B-MOR 1×4
+    at ``whole_brain_mor`` and primal B-MOR 2×2 on the store's rows; "c"
+    the sharded streamed ``fit(store=)`` over 2 data ranks.  Every rank
+    counts its launches; rank 0 holds each launch against its plain
+    version and writes the results."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compat, ridge
+    from repro_torch.data.store import RunStore
+    from repro_torch.encoding import BrainEncoder
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = compat.init_from_env("cuda", "gloo", timeout_s=spec["timeout_s"])
+    rank = compat.rank()
+    _build.load()
+    out = Path(spec["out"])
+    held: list = []
+    res: dict = {"rank": rank, "device": str(dev), "seconds": {},
+                 "launches": {}}
+    patches = _holding_all(held) if rank == 0 else []
+    arrays = {}
+
+    def main_path(tag, fn):
+        """``fn()`` as the main path: launches counted from zero (every
+        rank), rank 0's held against plain; collectives from its trace."""
+        _reset_counters()
+        compat.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _patched(*patches), _traced() as tracer:
+            enc = fn()
+            torch.cuda.synchronize()
+        res["seconds"][tag] = time.perf_counter() - t0
+        res["launches"][tag] = _counters()
+        res[f"{tag}_collectives"] = _collectives(tracer.events())
+        res[f"{tag}_held"] = list(held)
+        held.clear()
+        rep = enc.report_
+        res[f"{tag}_decision"] = [rep.decision.solver, rep.decision.method,
+                                  rep.decision.data_shards,
+                                  rep.decision.target_shards]
+        res[f"{tag}_lam"] = rep.best_lambda.tolist()
+        arrays[f"{tag}_W"] = enc.weights_.cpu().numpy()
+        arrays[f"{tag}_cv"] = rep.cv_scores
+        return enc
+
+    if spec["world"] == "b":
+        X, Y = _dist_data("dual", dev)
+        enc = main_path("dual", lambda: BrainEncoder(
+            solver="bmor_dual", device=dev).fit(X, Y))
+        if rank == 0:
+            # Each batch against the one-device dual solve of its columns
+            # at that batch's λ (on the same K: ridge.factorize's xty).
+            t0 = time.perf_counter()
+            cfg = enc.config.ridge_cv_config("dual", device=dev)
+            f = ridge.factorize(X, cfg)
+            lams, W = enc.report_.best_lambda, enc.weights_
+            width = Y.shape[1] // len(lams)
+            errs = []
+            for i, lam in enumerate(lams):
+                cols = slice(i * width, (i + 1) * width)
+                W_ref = ridge.solve(f, Y[:, cols], torch.tensor(
+                    float(lam), device=dev), X=X, use_pallas=True)
+                errs.append(_within("dual batch", W[:, cols], W_ref))
+            res["dual_batch_err"] = max(errs)
+            res["seconds"]["dual_check"] = time.perf_counter() - t0
+        del X, Y, enc
+        free()
+        Xs, Ys = RunStore.open(spec["store"]).load()
+        main_path("primal", lambda: BrainEncoder(
+            solver="bmor", data_shards=2, target_shards=2,
+            n_folds=DIST_FOLDS, device=dev).fit(Xs, Ys))
+    else:
+        store = RunStore.open(spec["store"])
+        enc = main_path("streamed", lambda: BrainEncoder(
+            n_folds=DIST_FOLDS, device_memory_budget=1,
+            chunk_rows=DIST_CHUNK_ROWS, device=dev).fit(store=store))
+        res["streamed_compiles"] = enc.stream_stats_["compile_count"]
+    with open(out / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        np.savez(out / "rank0.npz", **arrays)
+    compat.barrier()
+    compat.shutdown()
+    return 0
+
+
+def _within(name, got, want) -> float:
+    """max |got − want|, checked against the f32 parity tolerance of the
+    port's tests (rtol 1e-4, atol 2e-4)."""
+    import torch
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    want = want.to(got.device)
+    err = (got - want).abs().max().item()
+    check(bool(torch.allclose(got, want, **DIST_TOL)),
+          f"{name}: max abs err {err:.3e} outside rtol "
+          f"{DIST_TOL['rtol']:g} / atol {DIST_TOL['atol']:g}")
+    return err
+
+
+def _torchrun(nproc: int, spec: dict) -> tuple:
+    """Start ``python -m torch.distributed.run --nproc-per-node nproc
+    chip_smoke.py --dist-child SPEC`` (``_torchrun_wait`` collects it)."""
+    out = Path(spec["out"])
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "spec.json"
+    path.write_text(json.dumps(spec))
+    with open(out / "torchrun.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
+             "--dist-child", str(path)], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     REPRO_OBS_STRICT="1",
+                     # The ranks share one card: blocks a rank freed stay
+                     # usable by its next allocation instead of
+                     # fragmenting.
+                     PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"),
+            stdout=log, stderr=subprocess.STDOUT)
+    return proc, nproc, spec, time.perf_counter()
+
+
+def _torchrun_wait(tag: str, run: tuple, card: str) -> list[dict]:
+    """Wait for a ``_torchrun`` world; it must exit 0 within its time
+    limit (else it is killed).  → every rank's result."""
+    proc, nproc, spec, t0 = run
+    out = Path(spec["out"])
+    try:
+        rc = proc.wait(timeout=spec["timeout_s"] + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        print((out / "torchrun.log").read_text()[-12000:], file=sys.stderr)
+    check(rc == 0, f"{tag}: torch.distributed.run of {nproc} gloo ranks "
+          f"exited {rc}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(nproc)]
+    print(f"[multidevice] {tag}: {nproc} gloo ranks sharing cuda:0 "
+          f"exited 0 in {wall:.2f} s wall [{card}]")
+    return ranks
+
+
+def _print_world(tag: str, ranks: list[dict], card: str) -> dict:
+    """Print a world's seconds, launches (summed over ranks), held
+    launches and collectives; → the summed launches."""
+    r0 = ranks[0]
+    total: dict = {}
+    for t in r0["launches"]:
+        sums = {}
+        for r in ranks:
+            for k, v in r["launches"][t].items():
+                sums[k] = sums.get(k, 0) + v
+        launched = {k: v for k, v in sums.items() if v}
+        print(f"[multidevice] {tag} {t}: {r0['seconds'][t]:.2f} s on rank 0 "
+              f"(of ranks {[round(r['seconds'][t], 2) for r in ranks]}); "
+              f"decision {r0[t + '_decision']}; λ {r0[t + '_lam']}; "
+              f"launches over all ranks {launched} [{card}]")
+        held = r0[t + "_held"]
+        check(bool(held) and len(held) == sum(r0["launches"][t].values()),
+              f"{tag} {t}: {len(held)} held of {r0['launches'][t]}")
+        if held:
+            worst = max(held, key=lambda h: h[1] / max(h[2], 1e-30))
+            print(f"[multidevice]   rank 0's {len(held)} launches each held "
+                  f"against plain on its own operands "
+                  f"({'; '.join(sorted({h[0] for h in held}))}): worst max "
+                  f"abs err {worst[1]:.3e} of max|plain| {worst[2]:.3e} "
+                  f"(tol {REL_TOL:g}·max|plain|) [{card}]")
+        for c in r0[t + "_collectives"]:
+            print(f"[multidevice]   rank 0 {c['op']} over {c['axis']}: "
+                  f"{c['bytes']} bytes in {c['s']:.4f} s "
+                  f"({c['bytes'] / max(c['s'], 1e-9) / 1e9:.2f} GB/s; gloo "
+                  f"through host memory and loopback TCP, not NVLink) "
+                  f"[{card}]")
+        for k, v in sums.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _one_device_batches(X, Y, batches: dict, cfg) -> dict:
+    """``ridge.ridge_cv`` on each column batch ``Y[:, lo:hi]`` of
+    ``batches`` ({name: (lo, hi)}) on one device: its own steps
+    (``foldstats.compute``, the downdated ``eigh`` of every split,
+    ``ridge._fold_scores``, the argmax, the refit ``ridge.solve``), with the
+    target-independent factorisations shared by the batches (a batch's
+    result does not depend on the other columns).  → {name: (λ, W, cv)}."""
+    import torch
+    from repro_torch.core import foldstats, ridge
+
+    n, p = X.shape
+    stats = foldstats.compute(X, Y, cfg.n_folds, use_pallas=cfg.use_pallas)
+    lams = ridge._lambda_grid(cfg, X.device)
+    scores = {b: [] for b in batches}
+    for f, (lo, hi) in enumerate(foldstats.fold_bounds(n, cfg.n_folds)):
+        G_tr, C_tr = stats.train(f)
+        G_tr.diagonal().add_(cfg.jitter)
+        evals, Q = torch.linalg.eigh(G_tr)
+        del G_tr
+        A = torch.matmul(Q.T, C_tr)
+        Bv = torch.matmul(X[lo:hi].float(), Q)
+        for b, (c0, c1) in batches.items():
+            scores[b].append(ridge._fold_scores(
+                Bv, A[:, c0:c1].contiguous(), Y[lo:hi, c0:c1], evals, lams,
+                cfg.scoring))
+        del A, Bv, Q
+    G = stats.G_total
+    G.diagonal().add_(cfg.jitter)
+    evals, Q = torch.linalg.eigh(G)
+    factors = ridge.RidgeFactors(basis=Q, evals=evals, primal=True)
+    out = {}
+    for b, (c0, c1) in batches.items():
+        cv = torch.stack(scores[b]).mean(0)
+        best = torch.argmax(cv)
+        out[b] = (lams[best].item(), ridge.solve(
+            factors, stats.C_total[:, c0:c1], lams[best]), cv)
+    return out
+
+
+def phase_multidevice(card: str) -> dict:
+    """Phase 18: B-MOR and dual B-MOR, the sharded streamed fit, over
+    ``torch.distributed``.  → kernel launches of the main-path runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compat, ridge
+    from repro_torch.data.store import RunStore
+    from repro_torch.encoding import BrainEncoder
+
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_", dir=build))
+    try:
+        # The rows of (b)'s primal fit and (c)'s store: parcels' p and t,
+        # DIST_N rows.
+        t0 = time.perf_counter()
+        X, Y = _dist_data("cut", "cuda")
+        store = RunStore.create(str(root / "store"), n_folds=DIST_FOLDS)
+        for lo in range(0, DIST_N, RUN_ROWS):
+            store.write(X[lo:lo + RUN_ROWS], Y[lo:lo + RUN_ROWS], f"run{lo}")
+        del X, Y
+        free()
+        print(f"[multidevice] store of {DIST_N} rows × (16,384 + 444) "
+              f"written in {time.perf_counter() - t0:.2f} s")
+        spec = dict(store=str(root / "store"), timeout_s=DIST_TIMEOUT_S)
+        # (b) Four gloo ranks on cuda:0: dual B-MOR 1×4, primal 2×2.
+        ranks_b = _torchrun_wait("(b)", _torchrun(
+            4, dict(spec, world="b", out=str(root / "b"))), card)
+        add(_print_world("(b)", ranks_b, card))
+        r0 = ranks_b[0]
+        check(r0["dual_decision"] == ["bmor_dual", "dual", 1, 4]
+              and r0["primal_decision"] == ["bmor", "eigh", 2, 2],
+              f"(b) decisions {r0['dual_decision']} {r0['primal_decision']}")
+        for r in ranks_b:
+            check(r["launches"]["dual"]["xty"] == 1
+                  and r["launches"]["primal"]["xty_folds"] == 1,
+                  f"(b) rank {r['rank']} launches {r['launches']}")
+        print(f"[multidevice] (b) dual B-MOR 1×4: each batch's W against the "
+              f"one-device dual solve of its columns at its λ: max abs err "
+              f"{r0['dual_batch_err']:.3e} ({r0['seconds']['dual_check']:.2f} "
+              f"s) [{card}]")
+        # (c) Two gloo ranks: the sharded streamed fit of the same rows,
+        # started before the one-device check of (b) and (c), which runs
+        # here on the card while (c)'s ranks start.
+        run_c = _torchrun(2, dict(spec, world="c", out=str(root / "c")))
+        t0 = time.perf_counter()
+        Xs, Ys = RunStore.open(spec["store"]).load()
+        X = torch.from_numpy(Xs).cuda()
+        Y = torch.from_numpy(Ys).cuda()
+        half = Y.shape[1] // 2
+        cfg = BrainEncoder(n_folds=DIST_FOLDS, device="cuda").config \
+            .ridge_cv_config("eigh", device="cuda")
+        one = _one_device_batches(X, Y, {"b0": (0, half),
+                                         "b1": (half, Y.shape[1]),
+                                         "all": (0, Y.shape[1])}, cfg)
+        one_s = time.perf_counter() - t0
+        del X, Y, Xs, Ys
+        ranks_c = _torchrun_wait("(c)", run_c, card)
+        add(_print_world("(c)", ranks_c, card))
+        rc0 = ranks_c[0]
+        check(rc0["streamed_decision"] == ["ridge", "chunked", 2, 1]
+              and rc0["streamed_compiles"] == 1,
+              f"(c) decision {rc0['streamed_decision']}")
+        per_rank = -(-DIST_N // 2 // DIST_CHUNK_ROWS)
+        for r in ranks_c:
+            check(r["launches"]["streamed"]["xty_folds_masked"] == per_rank,
+                  f"(c) rank {r['rank']} launches {r['launches']}")
+        b_arr = dict(np.load(Path(root / "b" / "rank0.npz")))
+        c_arr = dict(np.load(Path(root / "c" / "rank0.npz")))
+        errs = []
+        for i, b in enumerate(("b0", "b1")):
+            lam, W, cv = one[b]
+            check(r0["primal_lam"][i] == lam, f"(b) batch {i} λ "
+                  f"{r0['primal_lam'][i]} != one-device {lam}")
+            cols = slice(i * half, (i + 1) * half)
+            errs.append(_within(f"(b) batch {i} W", b_arr["primal_W"][:, cols],
+                                W))
+            errs.append(_within(f"(b) batch {i} CV", b_arr["primal_cv"][i],
+                                cv))
+        lam, W, cv = one["all"]
+        check(rc0["streamed_lam"] == [lam], f"(c) λ {rc0['streamed_lam']} "
+              f"!= in-memory {lam}")
+        c_err = _within("(c) W", c_arr["streamed_W"], W)
+        print(f"[multidevice] one device on the same {DIST_N} rows "
+              f"({one_s:.2f} s beside (c)'s start, {DIST_FOLDS + 1} eighs "
+              f"shared by the batches): (b) "
+              f"B-MOR 2×2 batches λ {r0['primal_lam']} equal to ridge_cv of "
+              f"their columns, W and CV curve max abs err {max(errs):.3e}; "
+              f"(c) streamed over 2 ranks λ {lam:g} equal to the in-memory "
+              f"fit, W max abs err {c_err:.3e} [{card}]")
+        del one
+        free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (a) NCCL, a world of one rank on cuda:0, initialised here.
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    init = root.with_name(root.name + "_nccl")
+    dev = compat.init_from_env("cuda", "nccl",
+                               init_method=f"file://{init}",
+                               timeout_s=DIST_TIMEOUT_S)
+    try:
+        for which, solver, method, kernel in (
+                ("parcels", "bmor", "eigh", "xty_folds"),
+                ("dual", "bmor_dual", "dual", "xty")):
+            X, Y = _dist_data(which, dev)
+            held: list = []
+            _reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _patched(*_holding_all(held)):
+                enc = BrainEncoder(solver=solver, data_shards=1,
+                                   target_shards=1, device=dev).fit(X, Y)
+                torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = {k: v for k, v in _counters().items() if v}
+            rep = enc.report_
+            check(launches == {kernel: 1} and len(held) == 1,
+                  f"(a) {solver} launches {launches}")
+            check([rep.decision.solver, rep.decision.data_shards,
+                   rep.decision.target_shards] == [solver, 1, 1],
+                  f"(a) decision {rep.decision}")
+            add(launches)
+            t0 = time.perf_counter()
+            one = ridge.ridge_cv(X, Y, enc.config.ridge_cv_config(
+                method, device=dev))
+            one_s = time.perf_counter() - t0
+            check(rep.best_lambda.tolist() == [one.best_lambda.item()],
+                  f"(a) {solver} λ {rep.best_lambda} != ridge_cv's "
+                  f"{one.best_lambda.item()}")
+            w_err = _within(f"(a) {solver} W", enc.weights_, one.weights)
+            cv_err = _within(f"(a) {solver} CV", rep.cv_scores[0],
+                             one.cv_scores)
+            h = held[0] if held else ("", float("nan"), float("nan"))
+            print(f"[multidevice] (a) NCCL world of one: {solver} 1×1 at "
+                  f"n={X.shape[0]} p={X.shape[1]} t={Y.shape[1]} in "
+                  f"{fit_s:.2f} s, launches {launches} (held against plain: "
+                  f"max abs err {h[1]:.3e} of max|plain| {h[2]:.3e}); "
+                  f"one-device ridge_cv {one_s:.2f} s: λ "
+                  f"{rep.best_lambda[0]:g} equal, W max abs err {w_err:.3e}, "
+                  f"CV max abs err {cv_err:.3e} [{card}]")
+            del X, Y, enc, one
+            free()
+    finally:
+        compat.shutdown()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            os.environ.pop(k, None)
+        init.unlink(missing_ok=True)
+    return total
+
+
 def _selected(argv: list[str]) -> set[int] | None:
     """``--only 14,16`` runs phase 1 and the listed independent phases
-    (6 and 12 to 17) and prints no result lines: a quick check while
+    (6 and 12 to 18) and prints no result lines: a quick check while
     working on them.  With no arguments every phase runs."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
-                         "(N in 6, 12..17)")
+                         "(N in 6, 12..18)")
     only = {int(v) for v in argv[1].split(",")}
-    if not only <= {6, 12, 13, 14, 15, 16, 17}:
-        raise SystemExit(f"--only takes phases 6 and 12 to 17, got "
+    if not only <= {6, 12, 13, 14, 15, 16, 17, 18}:
+        raise SystemExit(f"--only takes phases 6 and 12 to 18, got "
                          f"{sorted(only)}")
     return only
 
@@ -3449,6 +3939,8 @@ def main(argv: list[str]) -> int:
 
     if argv[:1] == ["--kill-child"]:
         return _kill_child(argv[1])
+    if argv[:1] == ["--dist-child"]:
+        return _dist_child(argv[1])
     only = _selected(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3460,7 +3952,8 @@ def main(argv: list[str]) -> int:
         for n, phase in ((6, phase_streamed), (12, phase_wholebrain),
                          (13, phase_wholebrain_parity),
                          (14, phase_mor), (15, phase_banded),
-                         (16, phase_serving), (17, phase_drivers)):
+                         (16, phase_serving), (17, phase_drivers),
+                         (18, phase_multidevice)):
             if n in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -3469,35 +3962,54 @@ def main(argv: list[str]) -> int:
         print(f"[done] phases {sorted(only)} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    def stamp(n: str) -> None:
+        print(f"[time] phase {n} done, {time.perf_counter() - t_start:.1f} "
+              f"s into the run")
+
     phase_kernels_small()
     phase_backbone_kernels_small()
     phase_seed_kernels_small()
     rec = phase_kernels_full(card, reps=3)
+    stamp("2")
     launches = {}
     launches["xty_folds"], heldout = phase_primal(card)
+    stamp("3")
     launches["xty"] = phase_dual(card)
     phase_paths()
+    stamp("4-5")
     launches["xty_folds_masked"] = phase_streamed(card)
+    stamp("6")
     rec.update(phase_backbone_kernels_full(card, reps=3))
     phase_backbone_f32_paths(card)
     backbone = phase_backbone(card)
     launches.update(flash_attention=backbone["flash_attention"],
                     ssd_intra=backbone["ssd_intra"])
+    stamp("7-9")
     seed_rec, launches["pearson_r"] = phase_seed_kernels_full(card, heldout,
                                                               reps=3)
     rec.update(seed_rec)
     del heldout
     launches["solve_lambda_grid"] = phase_seed_primal(card)
     phase_seed_dual(card)
+    stamp("10-11")
     launches["xty_folds_masked"] += phase_wholebrain(card)
+    stamp("12")
     phase_wholebrain_parity(card)
+    stamp("13")
     launches["xty"] += phase_mor(card)
+    stamp("14")
     phase_banded(card)
+    stamp("15")
     phase_serving(card)
+    stamp("16")
     t0 = time.perf_counter()
     for k, v in phase_drivers(card).items():
         launches[k] += v
     print(f"[done] phase 17 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, v in phase_multidevice(card).items():
+        launches[k] += v
+    print(f"[done] phase 18 passed in {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("split_engine.cu",
                            "src/repro/kernels/gram.py:158"),

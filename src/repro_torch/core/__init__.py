@@ -8,11 +8,16 @@
   scoring.pearson_r                      — encoding performance metric
   mor.mor_fit / mor.mor_fit_taskwise     — MOR baseline, one RidgeCV per
                                            target (§2.3.4)
+  bmor.bmor_fit / bmor.bmor_fit_dual     — B-MOR over a mesh of ranks
+                                           (Alg. 1, Eq. 7)
+  mor.mor_fit_distributed                — MOR over a mesh of ranks
+  compat.make_mesh / compat.Mesh         — torch.distributed mesh, psum,
+                                           gather (the shard_map shims)
   banded.banded_ridge_cv                 — per-band λ (paper ref [13])
   complexity                             — analytic cost model (paper §3)
 """
 from repro_torch.core import (  # noqa: F401
-    banded, complexity, foldstats, mor, ridge, scoring,
+    banded, bmor, compat, complexity, foldstats, mor, ridge, scoring,
 )
 from repro_torch.core.foldstats import (  # noqa: F401
     FoldStats, FoldStatsAccumulator,

@@ -23,6 +23,11 @@ without the rows (``ridge.ridge_cv_from_stats``).
 The statistics are updated in place (``index_add_``): the (k, p, p) Gram
 is the largest object of a streamed fit, and a functional update would
 hold it twice.
+
+Over several ranks (``core.compat.Mesh``), ``partial_fold_stats`` gives a
+rank's per-fold partials of its row window (B-MOR, ``core.bmor``) and
+``compute_sharded_chunked(mesh=)`` streams each rank's own window; the
+stacked ``(k, p, ·)`` partials then reduce in one ``psum``.
 """
 from __future__ import annotations
 
@@ -53,6 +58,72 @@ def fold_bounds(n: int, n_folds: int) -> list[tuple[int, int]]:
         bounds.append((start, start + s))
         start += s
     return bounds
+
+
+def fold_of_rows(row_ids: torch.Tensor, n_total: int,
+                 n_folds: int) -> torch.Tensor:
+    """Contiguous fold id of each global row (the split of
+    ``fold_bounds``), for a rank whose slice of the global rows is known
+    only at run time (its mesh coordinate)."""
+    base, rem = divmod(n_total, n_folds)
+    # Rows [0, (base+1)*rem) live in folds of size base+1; the rest size base.
+    big = (base + 1) * rem
+    fold_big = row_ids // max(base + 1, 1)
+    fold_small = rem + (row_ids - big) // max(base, 1)
+    return torch.where(row_ids < big, fold_big, fold_small).to(torch.int32)
+
+
+def local_fold_bounds(fold_ids: torch.Tensor, n_folds: int
+                      ) -> list[tuple[int, int]]:
+    """The local row runs ``[(lo, hi), ...]`` of folds ``0..k-1`` in a
+    rank's window, empty ``(lo, lo)`` for a fold the window misses.
+
+    A rank's window is contiguous and so is each fold, so the ids are
+    non-decreasing and each fold is one run; other ids raise."""
+    f = fold_ids.detach().to("cpu", torch.int64)
+    if f.numel() and (bool((f[1:] < f[:-1]).any()) or int(f.min()) < 0
+                      or int(f.max()) >= n_folds):
+        raise ValueError(f"fold ids must be non-decreasing in [0, {n_folds})"
+                         f": each fold one contiguous run of the window")
+    bounds, lo = [], 0
+    for c in torch.bincount(f, minlength=n_folds).tolist():
+        bounds.append((lo, lo + c))
+        lo += c
+    return bounds
+
+
+def partial_fold_gc(X: torch.Tensor, Y: torch.Tensor,
+                     bounds: Sequence[tuple[int, int]], *,
+                     use_pallas: bool = False) -> torch.Tensor:
+    """Stacked per-fold ``X_fᵀ[X_f | Y_f]`` of the local runs ``bounds``
+    → (k, p, p+t) f32: ONE ``xty_folds`` launch with ``use_pallas``, the
+    plain ``ref.xty_folds`` otherwise."""
+    dt = torch.promote_types(X.dtype, Y.dtype)
+    Xd = X.to(dt).contiguous()
+    Z = torch.cat([Xd, Y.to(dt)], dim=1)
+    if use_pallas:
+        return ops.xty_folds(Xd, Z, bounds)
+    return ref.xty_folds(Xd, Z, bounds)
+
+
+def partial_fold_stats(X: torch.Tensor, Y: torch.Tensor,
+                       fold_ids: torch.Tensor, n_folds: int, *,
+                       use_pallas: bool = False
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-fold ``{G_f, C_f}`` of a rank's rows, ``fold_ids`` the global
+    fold of each local row (``fold_of_rows``) → ``(G (k, p, p),
+    C (k, p, t))``.
+
+    The reference masks the rows per fold inside ``shard_map`` (fold
+    membership is traced there), paying k full products.  Here the
+    window's fold runs are found on the host (``local_fold_bounds``) and
+    all k partials are one ``xty_folds`` over ``X_lᵀ[X_l | Y_l]``; a fold
+    the window misses is exact zeros.
+    """
+    GC = partial_fold_gc(X, Y, local_fold_bounds(fold_ids, n_folds),
+                          use_pallas=use_pallas)
+    p = X.shape[1]
+    return GC[:, :, :p], GC[:, :, p:]
 
 
 @dataclasses.dataclass
@@ -435,25 +506,44 @@ def compute_sharded_chunked(shard_streams: Sequence[Iterable], n_total: int,
     ``shard_streams[s]`` yields shard ``s``'s row chunks, covering exactly
     the window ``shard_row_ranges(n_total, len(shard_streams))[s]`` in
     global row order.  Each shard accumulates its own partial
-    ``FoldStats``; the partials merge with ``combine`` on the host side of
-    the one device (the reference's single-``psum`` finalize over a device
-    ``mesh`` comes with the multi-device slice).  Streams are consumed
-    sequentially and closed.
+    ``FoldStats``.  Without a ``mesh`` this process consumes every stream
+    in turn and the partials merge with ``combine``.  With a ``mesh``
+    (``core.compat``), each rank consumes only its own stream,
+    ``shard_streams[mesh.axis_index(data_axis)]``, and closes the others
+    unopened; then
+
+    * the stacked ``(k, p, p+t)`` ``[G | C]`` reduce in ONE ``psum`` over
+      ``data_axis``, and
+    * the small moment statistics are gathered and merged with
+      ``combine`` in shard order (the centred second moment needs the Chan
+      update, which a sum cannot express),
+
+    so every rank ends with the same global statistics.  ``chunk_rows``
+    pins the fixed shape of the masked update, so every stream shares one
+    signature.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "compute_sharded_chunked(mesh=...) is not ported yet: the "
-            "multi-device psum finalize comes with ROADMAP queue 1, item 9 "
-            "(multi-device)")
-    del data_axis                       # names the mesh axis; no mesh here
     ranges = shard_row_ranges(n_total, len(shard_streams))
+    mine = range(len(shard_streams))
+    if mesh is not None:
+        if mesh.size(data_axis) != len(shard_streams):
+            for stream in shard_streams:
+                if hasattr(stream, "close"):
+                    stream.close()
+            raise ValueError(
+                f"mesh axis {data_axis!r} has {mesh.size(data_axis)} shards "
+                f"but {len(shard_streams)} shard streams were accumulated")
+        mine = [mesh.axis_index(data_axis)]
+        for s, stream in enumerate(shard_streams):
+            if s not in mine and hasattr(stream, "close"):
+                stream.close()
     parts: list[FoldStats] = []
     # Sentinel window: with chunk_rows pinned every shard shares ONE
     # signature; left to infer, ragged shard windows may pin different
-    # first-chunk shapes — allow one per shard.
+    # first-chunk shapes — allow one per shard this process consumes.
     with _FIXED_UPDATE.compiles.expect(
-            at_most=1 if chunk_rows else len(shard_streams)):
-        for s, ((lo, hi), stream) in enumerate(zip(ranges, shard_streams)):
+            at_most=1 if chunk_rows else len(mine)):
+        for s in mine:
+            (lo, hi), stream = ranges[s], shard_streams[s]
             acc = FoldStatsAccumulator(n_total, n_folds, row_start=lo,
                                        row_stop=hi, chunk_rows=chunk_rows,
                                        use_pallas=use_pallas, device=device)
@@ -466,7 +556,26 @@ def compute_sharded_chunked(shard_streams: Sequence[Iterable], n_total: int,
                     if hasattr(stream, "close"):
                         stream.close()
             parts.append(acc.finalize())
-    return combine(parts)
+    if mesh is None or len(shard_streams) == 1:
+        return combine(parts)
+    own = parts[0]
+    p, t, k = own.G.shape[1], own.C.shape[2], own.n_folds
+    GC = torch.cat([own.G, own.C], dim=-1)
+    own.G = own.C = None                    # GC alone holds the partials
+    GC = mesh.psum(GC, data_axis)
+    small = torch.cat([own.xsum.reshape(-1), own.ysum.reshape(-1),
+                       own.ysq.reshape(-1), own.count])
+    gathered = mesh.all_gather(small, data_axis).reshape(
+        len(shard_streams), -1)
+    empty = GC[:, :0, :0]
+    shards = []
+    for row in gathered:
+        xs, ys, yq, cnt = torch.split(row, [k * p, k * t, k * t, k])
+        shards.append(FoldStats(G=empty, C=empty, xsum=xs.reshape(k, p),
+                                ysum=ys.reshape(k, t), ysq=yq.reshape(k, t),
+                                count=cnt))
+    merged = combine(shards)
+    return dataclasses.replace(merged, G=GC[..., :p], C=GC[..., p:])
 
 
 class ColumnMoments:

@@ -78,3 +78,4 @@ from repro_torch.encoding.dispatch import DispatchDecision, resolve  # noqa: F40
 from repro_torch.encoding.estimator import (  # noqa: F401
     BrainEncoder, EncodingReport, EvaluationReport,
 )
+from repro_torch.encoding.sharding import ShardingPlan  # noqa: F401

@@ -16,8 +16,8 @@ from repro_torch.core.banded import BandedConfig
 from repro_torch.core.ridge import PAPER_LAMBDA_GRID, RidgeCVConfig
 from repro_torch.kernels import ops
 
-# Solver identifiers, in the paper's vocabulary (the port runs ridge, mor
-# and banded on one device; dispatch names the ROADMAP item of the others):
+# Solver identifiers, in the paper's vocabulary (bmor and bmor_dual, and
+# mor with target_shards > 1, run over the ranks of torch.distributed):
 #   ridge     — single-shard SVD/eigh-mutualised RidgeCV (§2.3.1)
 #   mor       — MultiOutput ridge baseline, per-target recompute (§2.3.4)
 #   bmor      — Batch Multi-Output ridge, targets batched over shards (Alg. 1)

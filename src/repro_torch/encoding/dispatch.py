@@ -1,15 +1,18 @@
 """Complexity-driven solver dispatch (paper §3, Eq. 6–7).
 
-Port of ``repro/encoding/dispatch.py`` for the plans the port runs on one
-device: the single-shard ``ridge`` solver, primal eigh when ``n >= p`` and
-dual otherwise, the row-streamed ``chunked`` tier when the resident set
-exceeds ``device_memory_budget``, the target-blocked ``colblocked`` tier
-when even the ``(k, p, t)`` fold statistics break the budget (or
-``target_block`` is set), the explicit ``mor`` baseline and the ``banded``
-solver.  The multi-device plans — B-MOR and dual B-MOR — raise
-``NotImplementedError`` naming the ROADMAP item that ports them.  The
-decision fields and the plan's rationale match the reference's for the
-same inputs; the kernel-tier clause names the CUDA kernels.
+Port of ``repro/encoding/dispatch.py``.  Given ``(n, p, t,
+device_count)`` and an ``EncoderConfig``, ``resolve`` picks the solver —
+single-shard mutualised ridge, B-MOR, dual B-MOR, banded, or the explicit
+MOR baseline — the factorisation side (primal eigh when ``n >= p``, dual
+kernel otherwise), and the mesh layout ``(data_shards, target_shards)``
+minimising the analytic critical-path cost ``T_W/c_t + T_M/c_d``.  When
+the resident set exceeds ``device_memory_budget`` it pins the row-streamed
+``chunked`` tier, or the target-blocked ``colblocked`` tier when even the
+``(k, p, t)`` fold statistics break the budget (or ``target_block`` is
+set).  ``device_count`` is the world of ranks (``core.compat.
+device_count()``).  The decision fields and the plan's rationale match the
+reference's for the same inputs; the kernel-tier clause names the CUDA
+kernels.
 """
 from __future__ import annotations
 
@@ -22,18 +25,12 @@ from repro_torch.core.complexity import RidgeWorkload
 from repro_torch.device import resolve_device
 from repro_torch.encoding.config import EncoderConfig
 
-# Plans of the reference that the port does not run yet → ROADMAP item.
-_NOT_PORTED = {
-    "bmor": "queue 1, item 9 (multi-device)",
-    "bmor_dual": "queue 1, item 9 (multi-device)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class DispatchDecision:
     """The resolved execution plan, with the model cost that justified it."""
 
-    solver: str              # "ridge" | "mor" | "banded" (one device)
+    solver: str              # "ridge" | "mor" | "bmor" | "bmor_dual" | "banded"
     method: str              # "eigh" | "dual" | "chunked" | "colblocked"
     data_shards: int
     target_shards: int
@@ -47,10 +44,50 @@ class DispatchDecision:
         return self.data_shards * self.target_shards
 
 
-def _not_ported(plan: str):
-    return NotImplementedError(
-        f"dispatch chose the {plan!r} plan, which the PyTorch port does not "
-        f"run yet (ROADMAP {_NOT_PORTED[plan]})")
+def _divisor_layouts(c: int) -> list[tuple[int, int]]:
+    """All (data_shards, target_shards) with data·target == c."""
+    return [(d, c // d) for d in range(1, c + 1) if c % d == 0]
+
+
+def _best_bmor_layout(w: RidgeWorkload, device_count: int,
+                      data_shards: int | None, target_shards: int | None
+                      ) -> tuple[int, int, float]:
+    """Minimise T_W/c_t + T_M/c_d over divisor splits of the device count.
+
+    Pinned shard counts are honoured directly; with one side pinned the
+    other takes the remaining devices; with neither pinned the search
+    covers divisor pairs of the full device count, ties preferring more
+    target shards (the paper's batch axis — per-batch λ, Alg. 1 line 13).
+    """
+    if data_shards is not None and target_shards is not None:
+        if data_shards * target_shards > device_count:
+            raise ValueError(
+                f"pinned layout {data_shards}x{target_shards} needs more "
+                f"than the {device_count} available devices")
+        return (data_shards, target_shards,
+                complexity.t_bmor_sharded(w, data_shards, target_shards))
+    if data_shards is not None or target_shards is not None:
+        pinned = data_shards if data_shards is not None else target_shards
+        if not 1 <= pinned <= device_count:
+            raise ValueError(f"pinned shard count {pinned} exceeds the "
+                             f"{device_count} available devices")
+        other = device_count // pinned
+        c_d, c_t = ((pinned, other) if data_shards is not None
+                    else (other, pinned))
+        return c_d, c_t, complexity.t_bmor_sharded(w, c_d, c_t)
+    best_key: tuple[float, int] | None = None
+    best_layout: tuple[int, int, float] | None = None
+    for c_d, c_t in _divisor_layouts(device_count):
+        if c_d > max(w.n, 1):
+            continue
+        cost = complexity.t_bmor_sharded(w, c_d, c_t)
+        key = (cost, -c_t)
+        if best_key is None or key < best_key:
+            best_key, best_layout = key, (c_d, c_t, cost)
+    if best_layout is None:
+        raise ValueError(f"no B-MOR layout of {device_count} devices for "
+                         f"n={w.n}")
+    return best_layout
 
 
 def estimated_resident_bytes(n: int, p: int, t: int,
@@ -159,9 +196,10 @@ def resolve(cfg: EncoderConfig, n: int, p: int, t: int,
             device: torch.device | str | None = None) -> DispatchDecision:
     """Resolve ``cfg.solver`` ("auto" or explicit) into a concrete plan.
 
-    The port is single-device for now, so ``device_count`` is 1 and
-    ``auto`` resolves to the ``ridge`` solver, or ``banded`` when
-    ``cfg.bands`` is set.  ``device`` (default: CUDA,
+    ``device_count`` is the number of ranks the fit runs on
+    (``core.compat.device_count()``): with one, ``auto`` resolves to the
+    ``ridge`` solver, with more to B-MOR (dual B-MOR when ``n < p``), or
+    ``banded`` when ``cfg.bands`` is set.  ``device`` (default: CUDA,
     raising without one) decides the kernel tier.
     """
     decision = _resolve_plan(cfg, n, p, t, device_count)
@@ -218,8 +256,6 @@ def _resolve_plan(cfg: EncoderConfig, n: int, p: int, t: int,
             solver = "bmor_dual"
         else:
             solver = "bmor"
-    if solver in _NOT_PORTED:
-        raise _not_ported(solver)
 
     if solver == "banded":
         if cfg.bands is None:
@@ -229,6 +265,23 @@ def _resolve_plan(cfg: EncoderConfig, n: int, p: int, t: int,
             predicted_cost=cfg.n_band_candidates * complexity.t_m(w),
             rationale=f"{len(cfg.bands)} feature bands → per-band λ "
                       f"(Tikhonov substitution), one T_M per candidate")
+
+    if solver == "ridge":
+        # The CV Gram statistics are single-pass (t_w_folded = np², not the
+        # per-fold k·np²) — foldstats downdating keeps the k-fold
+        # redundancy off the critical path.
+        cost = (complexity.t_w(w) +
+                (complexity.t_m(w) + complexity.t_w_folded(w)
+                 if method == "eigh"
+                 else complexity.t_m_dual(w) + complexity.t_w_folded_dual(w)))
+        return DispatchDecision(
+            solver="ridge", method=method, data_shards=1, target_shards=1,
+            predicted_cost=cost,
+            rationale=f"single shard, {method} factorisation mutualised "
+                      f"across t={t} targets and r={w.r} λ (T_M + T_W); "
+                      f"single-pass fold stats save "
+                      f"{complexity.fold_redundancy_factor(w):.0f}× on the "
+                      f"np² Gram term")
 
     if solver == "mor":
         c_t = cfg.target_shards or 1
@@ -240,18 +293,25 @@ def _resolve_plan(cfg: EncoderConfig, n: int, p: int, t: int,
                       f"{complexity.mor_overhead_factor(w, max(c_t, 1)):.0f}×"
                       f" the B-MOR work at c={c_t} (never auto-selected)")
 
-    # The CV Gram statistics are single-pass (t_w_folded = np², not the
-    # per-fold k·np²) — foldstats downdating keeps the k-fold redundancy off
-    # the critical path.
-    cost = (complexity.t_w(w) +
-            (complexity.t_m(w) + complexity.t_w_folded(w)
-             if method == "eigh"
-             else complexity.t_m_dual(w) + complexity.t_w_folded_dual(w)))
+    if solver == "bmor_dual":
+        c_t = cfg.target_shards or device_count
+        if cfg.data_shards not in (None, 1):
+            raise ValueError("bmor_dual replicates rows; data_shards must "
+                             "be 1 (the n×n kernel is small when n < p)")
+        cost = (complexity.t_w(w) / c_t + complexity.t_m_dual(w) +
+                complexity.t_w_folded_dual(w))
+        return DispatchDecision(
+            solver="bmor_dual", method="dual", data_shards=1,
+            target_shards=c_t, predicted_cost=cost,
+            rationale=f"n={n} < p={p}: kernel (n×n) factorisation replicated,"
+                      f" targets batched over c={c_t} shards (Eq. 7 dual)")
+
+    c_d, c_t, cost = _best_bmor_layout(w, device_count, cfg.data_shards,
+                                       cfg.target_shards)
     return DispatchDecision(
-        solver="ridge", method=method, data_shards=1, target_shards=1,
+        solver="bmor", method="eigh", data_shards=c_d, target_shards=c_t,
         predicted_cost=cost,
-        rationale=f"single shard, {method} factorisation mutualised "
-                  f"across t={t} targets and r={w.r} λ (T_M + T_W); "
-                  f"single-pass fold stats save "
-                  f"{complexity.fold_redundancy_factor(w):.0f}× on the "
-                  f"np² Gram term")
+        rationale=f"B-MOR Eq. 7: T_W/{c_t} + T_M/{c_d} minimal over divisor "
+                  f"layouts of {device_count} devices "
+                  f"(vs MOR {complexity.mor_overhead_factor(w, c_t):.0f}× "
+                  f"work at equal parallelism)")

@@ -1,16 +1,25 @@
 """``BrainEncoder`` — the scikit-learn-style facade over the ridge solver.
 
-Port of ``repro/encoding/estimator.py`` for one device: ``fit(X, Y)``
-resolves the plan through ``encoding.dispatch`` and runs the chosen
-solver — ``core.ridge.ridge_cv``, the per-target MOR baseline
-(``core.mor``) or banded ridge (``core.banded``); ``fit(store=)`` and ``fit_chunks`` stream the rows
-of a ``RunStore`` (or any ordered chunk source) through
-``foldstats.FoldStatsAccumulator`` and solve from the statistics alone
-(``ridge.ridge_cv_from_stats``), or — when even the ``(k, p, t)``
-statistics break the budget — block the targets through
+Port of ``repro/encoding/estimator.py``: ``fit(X, Y)`` resolves the plan
+through ``encoding.dispatch`` and runs the chosen solver —
+``core.ridge.ridge_cv``, B-MOR or dual B-MOR (``core.bmor``) over the
+ranks of ``torch.distributed``, the per-target MOR baseline
+(``core.mor``) or banded ridge (``core.banded``); ``fit(store=)`` and
+``fit_chunks`` stream the rows of a ``RunStore`` (or any ordered chunk
+source) through ``foldstats.FoldStatsAccumulator`` — each rank its own
+row window when the plan has several data shards — and solve from the
+statistics alone (``ridge.ridge_cv_from_stats``), or — when even the
+``(k, p, t)`` statistics break the budget — block the targets through
 ``wholebrain.fit_wholebrain``; ``predict``/``score``/``evaluate`` follow, and
 ``save``/``load`` persist the fitted encoder as an ``EncoderBundle``.
 The encoder runs on CUDA unless constructed with ``device="cpu"``.
+
+Over several ranks (``python -m torch.distributed.run``, then
+``core.compat.init_from_env``), every rank calls ``fit`` with the same
+host arrays; dispatch sees ``compat.device_count()`` devices, the plan
+hands each rank its block (``encoding.sharding.ShardingPlan``), and every
+rank ends with the same full ``weights_``, per-batch ``best_lambda`` and
+``cv_scores``.
 """
 from __future__ import annotations
 
@@ -21,10 +30,12 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core import banded, foldstats, mor, ridge, scoring
+from repro_torch.core import banded, bmor, compat, foldstats, mor, ridge, \
+    scoring
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.encoding.config import EncoderConfig
 from repro_torch.encoding.dispatch import DispatchDecision, resolve
+from repro_torch.encoding.sharding import ShardingPlan
 
 _SOLVER_LABELS = {
     "ridge": "RidgeCV", "mor": "MOR", "bmor": "B-MOR",
@@ -34,8 +45,10 @@ _SOLVER_LABELS = {
 
 @dataclasses.dataclass
 class EncodingReport:
-    """Fit result: weights, selected λ and CV curve (one batch: ``(1,)`` and
-    ``(1, r)``), the swept grid, and the dispatch decision.  MOR selects λ
+    """Fit result: weights, selected λ and CV curve (one entry per target
+    batch: ``(1,)`` and ``(1, r)`` for one shard, ``(target_shards,)`` and
+    ``(target_shards, r)`` for B-MOR), the swept grid, and the dispatch
+    decision.  MOR selects λ
     per target inside its fits (``best_lambda`` empty, ``cv_scores``
     ``(0, r)``); banded ridge reports its CV curve over the candidates and
     the winning ``band_lambdas`` (``best_lambda`` and ``lambdas`` empty)."""
@@ -134,6 +147,9 @@ class BrainEncoder:
         # Set by the streamed fit paths: overlap telemetry of the chunk
         # pipeline.  None for in-memory fits.
         self.stream_stats_: dict | None = None
+        # (mesh, target axis) of a target-sharded load: report_.weights is
+        # then this rank's column block.  None otherwise.
+        self.target_shard_: tuple | None = None
 
     def fit(self, X=None, Y=None, *, store=None,
             chunk_rows: int | None = None) -> "BrainEncoder":
@@ -161,7 +177,8 @@ class BrainEncoder:
                 self._check_store_folds(store)
                 n, p, t = store.shape
                 with obs.span("fit.dispatch", n=n, p=p, t=t):
-                    decision = resolve(self.config, n, p, t, 1,
+                    decision = resolve(self.config, n, p, t,
+                                       compat.device_count(),
                                        device=self.device)
                 if decision.method == "colblocked":
                     return self._fit_store_colblocked(store, decision,
@@ -172,13 +189,16 @@ class BrainEncoder:
                 X, Y = store.load()
             if X is None or Y is None:
                 raise ValueError("fit() needs (X, Y) arrays or store=")
-            X = as_tensor(X, self.device)
-            Y = as_tensor(Y, self.device)
             n, p = X.shape
             t = Y.shape[1]
             with obs.span("fit.dispatch", n=n, p=p, t=t):
-                decision = resolve(self.config, n, p, t, 1,
-                                   device=self.device)
+                decision = resolve(self.config, n, p, t,
+                                   compat.device_count(), device=self.device)
+            # The sharded plans move only this rank's block to the device.
+            if decision.solver not in ("bmor", "bmor_dual") and not (
+                    decision.solver == "mor" and decision.target_shards > 1):
+                X = as_tensor(X, self.device)
+                Y = as_tensor(Y, self.device)
             fitter = getattr(self, f"_fit_{decision.solver}")
             with obs.span("fit.solve", solver=decision.solver):
                 self.report_ = fitter(X, Y, decision)
@@ -270,7 +290,8 @@ class BrainEncoder:
                 f"standardize the targets first (pipeline.standardize)")
         cfg = dataclasses.replace(self.config, solver="ridge", method="eigh")
         if decision is None:
-            decision = resolve(cfg, n_total, p, t, 1, device=self.device)
+            decision = resolve(cfg, n_total, p, t, compat.device_count(),
+                               device=self.device)
         res = ridge.ridge_cv_from_stats(
             stats, cfg.ridge_cv_config("eigh", device=self.device))
         self.report_ = EncodingReport(
@@ -282,24 +303,34 @@ class BrainEncoder:
 
     def _fit_store_chunked(self, store, decision: DispatchDecision,
                            chunk_rows: int | None) -> "BrainEncoder":
-        """Streamed fit on one device (one row shard): the store's rows
-        stream (background-prefetched when ``config.prefetch``, into pinned
-        buffers on CUDA) through the fixed-shape chunk update, as the
-        reference's sharded pass with one shard."""
+        """Streamed fit: the row windows shard over ``decision.data_shards``
+        ranks, each rank streaming its own window (background-prefetched
+        when ``config.prefetch``, into pinned buffers on CUDA) through the
+        fixed-shape chunk update; one ``psum`` combines the stacked
+        ``[G|C]`` partials (``foldstats.compute_sharded_chunked``)."""
         self._check_chunkable()
         n_total = store.shape[0]
         chunk_rows = chunk_rows or self.config.chunk_rows
-        stream = store.iter_chunks(chunk_rows, prefetch=self.config.prefetch,
-                                   prefetch_depth=self.config.prefetch_depth,
-                                   pin_memory=self.device.type == "cuda")
+        n_shards = max(1, min(decision.data_shards, compat.device_count(),
+                              n_total))
+        mesh = None
+        if n_shards > 1:
+            mesh = compat.make_mesh((n_shards,), (self.config.data_axis,),
+                                    device=self.device)
+        streams = [
+            store.iter_chunks(chunk_rows, row_range=(lo, hi),
+                              prefetch=self.config.prefetch,
+                              prefetch_depth=self.config.prefetch_depth,
+                              pin_memory=self.device.type == "cuda")
+            for lo, hi in foldstats.shard_row_ranges(n_total, n_shards)]
         compiles0 = foldstats.chunk_update_compile_count()
-        with obs.span("fit.stats", n=n_total, shards=1,
+        with obs.span("fit.stats", n=n_total, shards=n_shards,
                       chunk_rows=chunk_rows):
             stats = foldstats.compute_sharded_chunked(
-                [stream], n_total, self.config.n_folds,
-                chunk_rows=chunk_rows, use_pallas=decision.use_pallas,
-                device=self.device)
-        self._record_stream_stats([stream], compiles0)
+                streams, n_total, self.config.n_folds, mesh=mesh,
+                data_axis=self.config.data_axis, chunk_rows=chunk_rows,
+                use_pallas=decision.use_pallas, device=self.device)
+        self._record_stream_stats(streams, compiles0)
         return self._fit_from_stats(stats, n_total, decision)
 
     def _fit_store_colblocked(self, store, decision: DispatchDecision,
@@ -353,8 +384,14 @@ class BrainEncoder:
 
     @property
     def weights_(self) -> torch.Tensor:
+        """The (p, t) weight matrix.  On an encoder loaded target-sharded
+        (``load(target_shards=c)``) each rank holds only its column block,
+        and this gathers the full matrix: every rank must ask."""
         if self.report_ is None:
             raise RuntimeError("call fit() first")
+        if self.target_shard_ is not None:
+            mesh, axis = self.target_shard_
+            return mesh.all_gather(self.report_.weights, axis, dim=1)
         return self.report_.weights
 
     def save(self, bundle_dir: str, *, overwrite: bool = False,
@@ -368,25 +405,37 @@ class BrainEncoder:
         ``EncoderConfig``, the dispatch decision and the fitted
         ``Standardizer`` land on disk in the reference's format, atomically
         (staged, then renamed).  ``BrainEncoder.load(d).predict(X)`` is
-        bitwise equal to ``self.predict(X)``.
+        bitwise equal to ``self.predict(X)``.  Over several ranks every
+        rank calls ``save``: rank 0 writes, the others wait at a barrier.
         """
         from repro_torch.serving_encoders import bundle
-        return bundle.save_bundle(bundle_dir, self, overwrite=overwrite,
-                                  weight_shards=weight_shards,
-                                  weight_dtype=weight_dtype,
-                                  provenance=provenance)
+        W = self.weights_ if self.report_ is not None else None
+        if compat.rank() == 0:
+            bundle.save_bundle(bundle_dir, self, overwrite=overwrite,
+                               weight_shards=weight_shards,
+                               weight_dtype=weight_dtype,
+                               provenance=provenance, weights=W)
+        compat.barrier()
+        return bundle_dir
 
     @classmethod
     def load(cls, bundle_dir: str, *, target_shards: int | None = None,
              device: torch.device | str | None = None) -> "BrainEncoder":
         """Rebuild a fitted encoder from a saved bundle (no refit), on
         ``device`` (CUDA unless ``device="cpu"``).  ``target_shards`` > 1
-        (a sharded serving layout) is not ported yet."""
+        places ``W`` column-sharded over a ``(1, target_shards)`` mesh of
+        the ranks (the serving layout): each rank holds its column block,
+        and ``predict`` gathers the columns."""
         from repro_torch.serving_encoders import bundle
         return bundle.EncoderBundle.open(bundle_dir).load_encoder(
             target_shards=target_shards, device=device)
 
     def predict(self, X) -> torch.Tensor:
+        if self.target_shard_ is not None:
+            mesh, axis = self.target_shard_
+            local = ridge.predict(as_tensor(X, self.device),
+                                  self.report_.weights)
+            return mesh.all_gather(local, axis, dim=1)
         return ridge.predict(as_tensor(X, self.device), self.weights_)
 
     def score(self, X, Y) -> np.ndarray:
@@ -423,15 +472,69 @@ class BrainEncoder:
             cv_scores=res.cv_scores.cpu().numpy()[None, :],
             lambdas=self.config.lambdas, decision=decision)
 
+    def _plan(self, decision: DispatchDecision, **kw) -> ShardingPlan:
+        return ShardingPlan(data_shards=decision.data_shards,
+                            target_shards=decision.target_shards,
+                            data_axis=self.config.data_axis,
+                            target_axis=self.config.target_axis, **kw)
+
     def _fit_mor(self, X, Y, decision: DispatchDecision) -> EncodingReport:
         cfg = self.config.ridge_cv_config(decision.method, device=self.device)
-        fit = mor.mor_fit_taskwise if self.config.mor_taskwise else \
-            mor.mor_fit
+        if self.config.mor_taskwise and decision.target_shards > 1:
+            raise ValueError("mor_taskwise=True is incompatible with "
+                             "target_shards > 1: taskwise MOR is a host-level "
+                             "per-target loop (paper Fig. 8 cost semantics)")
+        if decision.target_shards > 1:
+            plan = self._plan(decision)
+            X, Y, t = plan.prepare(X, Y)
+            mesh = plan.build_mesh(self.device)
+            X_l, Y_l = plan.place(mesh, X, Y)
+            W = mor.mor_fit_distributed(X_l, Y_l, mesh,
+                                        axis=plan.target_axis, cfg=cfg)
+            W = W[:, :t]
+        elif self.config.mor_taskwise:
+            W = mor.mor_fit_taskwise(X, Y, cfg)
+        else:
+            W = mor.mor_fit(X, Y, cfg)
         return EncodingReport(
-            weights=fit(X, Y, cfg),
+            weights=W,
             best_lambda=np.empty((0,)),          # per-target λ stays internal
             cv_scores=np.empty((0, len(self.config.lambdas))),
             lambdas=self.config.lambdas, decision=decision)
+
+    def _bmor_report(self, res: bmor.BMORResult, t: int,
+                     decision: DispatchDecision) -> EncodingReport:
+        # Every rank holds the gathered W: dropping the padded columns is a
+        # plain slice (the reference's slice of a target-sharded W fails).
+        W = res.weights
+        return EncodingReport(
+            weights=W if W.shape[1] == t else W[:, :t].contiguous(),
+            best_lambda=res.best_lambda.cpu().numpy(),
+            cv_scores=res.cv_scores.cpu().numpy(),
+            lambdas=self.config.lambdas, decision=decision)
+
+    def _fit_bmor(self, X, Y, decision: DispatchDecision) -> EncodingReport:
+        plan = self._plan(decision)
+        X, Y, t = plan.prepare(X, Y)
+        mesh = plan.build_mesh(self.device)
+        X_l, Y_l = plan.place(mesh, X, Y)
+        res = bmor.bmor_fit(X_l, Y_l, mesh, data_axis=plan.data_axis,
+                            target_axis=plan.target_axis,
+                            cfg=self.config.ridge_cv_config(
+                                "eigh", device=self.device))
+        return self._bmor_report(res, t, decision)
+
+    def _fit_bmor_dual(self, X, Y, decision: DispatchDecision
+                       ) -> EncodingReport:
+        plan = self._plan(decision, replicate_rows=True)
+        X, Y, t = plan.prepare(X, Y)
+        mesh = plan.build_mesh(self.device)
+        X_l, Y_l = plan.place(mesh, X, Y)
+        res = bmor.bmor_fit_dual(X_l, Y_l, mesh,
+                                 target_axis=plan.target_axis,
+                                 cfg=self.config.ridge_cv_config(
+                                     "dual", device=self.device))
+        return self._bmor_report(res, t, decision)
 
     def _fit_banded(self, X, Y, decision: DispatchDecision) -> EncodingReport:
         """Banded RidgeCV; the candidates come from a CPU generator seeded

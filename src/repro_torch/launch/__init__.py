@@ -13,11 +13,13 @@ on the CPU):
   ``--kill-worker``).
 * ``obs_report`` — span tables and the coverage gate of a trace;
   ``obscli`` wires ``--trace-out``/``--metrics-out`` into every driver.
-* ``roofline_report`` — ``encoding_roofline`` only.
+* ``roofline_report`` — ``encoding_roofline`` and the three-term
+  ``roofline_terms``.
 
-Not ported: the multi-device plans the drivers reach (``--solver
-bmor|bmor_dual``, ``--target-shards > 1``: ROADMAP queue 1 item 9);
-``serve --arch`` LLM decoding, the other architectures, ``train``,
-``steps``, ``mesh``, ``dryrun``, ``perf``, the rest of
+``encode`` also runs under ``python -m torch.distributed.run`` (B-MOR,
+dual B-MOR, sharded streaming over the ranks; ``--dist-backend``).
+
+Not ported: ``serve --arch`` LLM decoding, the other architectures,
+``train``, ``steps``, ``mesh``, ``dryrun``, ``perf``, the rest of
 ``roofline_report`` and ``hlo_analysis`` (item 12).
 """

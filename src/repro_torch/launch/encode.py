@@ -2,28 +2,37 @@
 
 Port of ``repro/launch/encode.py``: stimulus features (backbone hidden
 states or synthetic VGG16-shaped features) → ``BrainEncoder`` (solver
-picked by complexity-driven dispatch; the port runs one device, so
-``auto`` resolves to the mutualised RidgeCV) → Pearson-r encoding map +
-null permutation control.  The flags, phases and printed lines are the
-reference's; ``--device`` (default CUDA, which fails without a card) is
-the port's one addition.
+picked by complexity-driven dispatch from the problem shape and the number
+of ranks: the mutualised RidgeCV on one, B-MOR or dual B-MOR on several)
+→ Pearson-r encoding map + null permutation control.  The flags, phases
+and printed lines are the reference's; ``--device`` (default CUDA, which
+fails without a card) and ``--dist-backend`` are the port's additions.
 
     python -m repro_torch.launch.encode --device cpu --backbone vgg16
     python -m repro_torch.launch.encode --backbone zamba2-2.7b --n 8192
     python -m repro_torch.launch.encode --store DIR --budget-mb 64
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.encode --solver bmor
+
+Under ``torch.distributed.run`` every rank runs the whole pipeline on the
+same data; the device count is the world size (the reference's
+``jax.device_count()``), the process group is ``nccl`` on CUDA and
+``gloo`` on the CPU (``--dist-backend gloo`` for ranks sharing one card),
+and only rank 0 prints its lines and writes bundles and reports.
 
 On CUDA the in-memory fits launch the ``xty_folds`` kernel, the streamed
 ``--store`` fits ``xty_folds_masked``, and the backbones' SSD within-chunk
 term ``ssd_intra`` (the kernel tier is on iff the device is CUDA:
 ``EncoderConfig.use_pallas=None`` for the fit, ``configs.for_device`` for
-the backbone).  ``--solver bmor|bmor_dual`` and ``--target-shards > 1``
-need several devices (ROADMAP queue 1 item 9) and are refused by
-dispatch; architectures other than zamba2-2.7b and mamba2-130m raise,
-naming item 12.
+the backbone).  ``--solver bmor|bmor_dual`` needs a process group (one
+rank is enough), and ``--target-shards`` at most the world's ranks;
+architectures other than zamba2-2.7b and mamba2-130m raise, naming item
+12.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def _run_store_mode(args, dev) -> None:
@@ -37,20 +46,25 @@ def _run_store_mode(args, dev) -> None:
     """
     import os
 
+    from repro_torch.core import compat
     from repro_torch.data import fmri
     from repro_torch.data.store import MANIFEST_NAME, RunStore
     from repro_torch.encoding import BrainEncoder, EncoderConfig
     from repro_torch.encoding.dispatch import estimated_resident_bytes
 
-    if os.path.exists(os.path.join(args.store, MANIFEST_NAME)):
+    existing = os.path.exists(os.path.join(args.store, MANIFEST_NAME))
+    compat.barrier()            # every rank looked before rank 0 writes
+    if existing:
         store = RunStore.open(args.store)
         print(f"opened store {args.store}: shape {store.shape}")
     else:
         spec = fmri.SubjectSpec(n=args.n, p=128, t=args.targets)
-        store = RunStore.create(args.store)
-        store.materialize_synthetic(
-            spec, rows_per_run=max(1, min(spec.n, 4 * args.chunk_rows)),
-            device=dev)
+        if compat.rank() == 0:
+            store = RunStore.create(args.store)
+            store.materialize_synthetic(
+                spec, rows_per_run=max(1, min(spec.n, 4 * args.chunk_rows)),
+                device=dev)
+        compat.barrier()
         store = RunStore.open(args.store)
         print(f"materialised synthetic subject into {args.store}: "
               f"shape {store.shape}")
@@ -62,11 +76,12 @@ def _run_store_mode(args, dev) -> None:
                                      prefetch=args.prefetch), device=dev)
     enc.fit(store=store)
     d = enc.report_.decision
-    # One device: the reference passes jax.device_count() as the target
-    # shard count of the estimate.
-    resident = estimated_resident_bytes(n, p, t, 1)
+    # The reference passes jax.device_count() as the target shard count
+    # of the estimate.
+    devices = compat.device_count()
+    resident = estimated_resident_bytes(n, p, t, devices)
     print(f"resident estimate {resident / 2**20:.1f} MB vs budget "
-          f"{args.budget_mb:.1f} MB on 1 device(s)")
+          f"{args.budget_mb:.1f} MB on {devices} device(s)")
     print(f"dispatch: solver={d.solver} method={d.method} "
           f"data_shards={d.data_shards} ({d.rationale})")
     if enc.stream_stats_ is not None:
@@ -97,9 +112,13 @@ def _save_bundle_with_report(encoder, bundle_dir: str,
     """
     import os
 
+    from repro_torch.core import compat
+
     path = encoder.save(bundle_dir, overwrite=True, provenance=provenance)
-    with open(os.path.join(path, "report.json"), "w") as f:
-        f.write(encoder.report_.to_json())
+    if compat.rank() == 0:
+        with open(os.path.join(path, "report.json"), "w") as f:
+            f.write(encoder.report_.to_json())
+    compat.barrier()
     print(f"bundle saved → {path} (report.json alongside)")
 
 
@@ -133,13 +152,34 @@ def main(argv: list[str] | None = None) -> None:
                     help="persist the fitted encoder as an EncoderBundle "
                          "directory (+ report.json run provenance) for the "
                          "serving subsystem")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="process-group backend under torch.distributed.run "
+                         "(default: nccl on CUDA, gloo on the CPU; gloo for "
+                         "several ranks on one card)")
     add_device_arg(ap)
     add_obs_args(ap)
     args = ap.parse_args(argv)
     dev = resolve_device_arg(args)
 
-    with obs_session(args):
-        _run(args, dev)
+    import contextlib
+    import os
+
+    from repro_torch.core import compat
+
+    ranked = "WORLD_SIZE" in os.environ and not compat.is_initialized()
+    if ranked:
+        dev = compat.init_from_env(dev, args.dist_backend)
+    try:
+        # Every rank runs the same pipeline; only rank 0 prints.
+        with open(os.devnull, "w") as devnull, \
+                contextlib.redirect_stdout(devnull if compat.rank()
+                                           else sys.stdout), \
+                obs_session(args):
+            _run(args, dev)
+    finally:
+        if ranked:
+            compat.shutdown()
 
 
 def _run(args, dev) -> None:
@@ -194,8 +234,8 @@ def _run(args, dev) -> None:
               f"Y{tuple(Y.shape)}")
 
     # 2-4. 90/10 split → standardize (train-fitted) → fit → evaluate, through
-    # the unified estimator API; the dispatch layer picks the solver from
-    # the problem shape on one device (§3 cost model).
+    # the unified estimator API; the dispatch layer picks ridge vs (dual)
+    # B-MOR from the problem shape and the number of ranks (§3 cost model).
     enc_cfg = EncoderConfig(solver=args.solver,
                             target_shards=args.target_shards)
     state = pipeline.run(X, Y, enc_cfg, detrend_targets=False, n_perms=5,

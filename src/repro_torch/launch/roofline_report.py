@@ -1,13 +1,15 @@
 """Roofline placement of an out-of-core ridge-CV fit (paper §3 terms).
 
 Port of ``encoding_roofline`` (``repro/launch/roofline_report.py``) and of
-the one-device part of the ``roofline_terms`` it calls
-(``repro/launch/hlo_analysis.py``), which the whole-brain driver's ``ab``
-phase reports.  The reference's CPU
+the ``roofline_terms`` it calls (``repro/launch/hlo_analysis.py``), which
+the whole-brain driver's ``ab`` phase reports.  The reference's CPU
 envelope stays the default; ``H100_PEAK_FLOPS``/``H100_MEM_BW`` are the
 data-sheet peaks of the H100 SXM part at its 700 W limit (67 TFLOP/s f32
 outside the tensor cores, 3.35 TB/s of HBM3), which a driver passes when
-it runs on a CUDA card.
+it runs on a CUDA card.  ``H100_NVLINK_BW`` is the same data sheet's
+NVLink figure (900 GB/s per card, the sum over its 18 links in both
+directions), the collective term's default link rate: a data-sheet
+number, not a measurement.
 
 The rest of the reference module — the dry-run roofline table and
 ``predict_roofline``'s bench callers — is ROADMAP queue 1 item 12.
@@ -25,20 +27,27 @@ CPU_MEM_BW = 20e9
 # HBM3 bandwidth.
 H100_PEAK_FLOPS = 67e12
 H100_MEM_BW = 3.35e12
+# NVIDIA H100 SXM data sheet: NVLink bandwidth per card.
+H100_NVLINK_BW = 900e9
 
 
-def roofline_terms(flops: float, nbytes: float, *, peak_flops: float,
-                   mem_bw: float) -> dict:
-    """The compute and memory roofline terms (seconds) and the larger one.
+def roofline_terms(flops: float, nbytes: float, coll_bytes: float = 0.0, *,
+                   peak_flops: float, mem_bw: float,
+                   link_bw: float = H100_NVLINK_BW) -> dict:
+    """The three roofline terms (seconds) and the largest one.
 
-    The reference's ``roofline_terms`` (``hlo_analysis.py``) adds a third,
-    collective term over the TPU's inter-chip links; one device moves no
-    collective bytes, so the port keeps the two terms that carry meaning
-    (multi-device is ROADMAP queue 1 item 9)."""
+    All inputs are per device: ``coll_bytes`` are the bytes this device's
+    collectives move (an ``all_reduce``'s operand, a gather's buffer),
+    over ``link_bw`` — the reference's ``ici_bw · ici_links`` over the
+    TPU's inter-chip links, NVLink here.  One device moves none, and the
+    collective term is then 0."""
     t_compute = flops / peak_flops
     t_memory = nbytes / mem_bw
+    t_collective = coll_bytes / link_bw
+    dom = max(("compute", t_compute), ("memory", t_memory),
+              ("collective", t_collective), key=lambda kv: kv[1])
     return {"t_compute_s": t_compute, "t_memory_s": t_memory,
-            "bottleneck": "compute" if t_compute >= t_memory else "memory"}
+            "t_collective_s": t_collective, "bottleneck": dom[0]}
 
 
 def encoding_roofline(n: int, p: int, t: int, *, r: int = 11,
@@ -65,14 +74,20 @@ def encoding_roofline(n: int, p: int, t: int, *, r: int = 11,
         "bytes": nbytes,
         "flop_per_byte": flops / nbytes if nbytes else float("nan"),
         "peak_flop_per_byte": peak_flops / mem_bw,
-        **roofline_terms(flops, nbytes, peak_flops=peak_flops,
-                         mem_bw=mem_bw),
     }
+    # One fit on one device moves no collective bytes: the compute and
+    # memory terms and the larger of the two, as the reference reports.
+    terms = roofline_terms(flops, nbytes, 0.0, peak_flops=peak_flops,
+                           mem_bw=mem_bw)
+    out.update(t_compute_s=terms["t_compute_s"],
+               t_memory_s=terms["t_memory_s"],
+               bottleneck=("compute" if terms["t_compute_s"]
+                           >= terms["t_memory_s"] else "memory"))
     if wall_s:
         out["achieved_flops"] = flops / wall_s
         out["peak_fraction"] = flops / wall_s / peak_flops
     return out
 
 
-__all__ = ["CPU_MEM_BW", "CPU_PEAK_FLOPS", "H100_MEM_BW", "H100_PEAK_FLOPS",
-           "encoding_roofline", "roofline_terms"]
+__all__ = ["CPU_MEM_BW", "CPU_PEAK_FLOPS", "H100_MEM_BW", "H100_NVLINK_BW",
+           "H100_PEAK_FLOPS", "encoding_roofline", "roofline_terms"]

@@ -1,5 +1,7 @@
 """Fitted-encoder artifacts and prediction serving (port of
-``repro/serving_encoders``), on one device — CUDA unless ``device="cpu"``.
+``repro/serving_encoders``), on CUDA unless ``device="cpu"`` — one
+device, or a bundle's columns over the ranks of ``torch.distributed``
+(``target_shards``).
 
 * ``bundle``   — ``EncoderBundle``: atomic on-disk persistence of a fitted
   ``BrainEncoder`` in the reference's format (sharded W with bf16-as-u16

@@ -117,12 +117,15 @@ def _standardizer_leaves(std) -> tuple[dict, dict]:
 def save_bundle(bundle_dir: str, encoder, *, overwrite: bool = False,
                 weight_shards: int | None = None,
                 weight_dtype: str | torch.dtype | None = None,
-                provenance: dict | None = None) -> str:
+                provenance: dict | None = None,
+                weights: torch.Tensor | None = None) -> str:
     """Write a fitted ``BrainEncoder`` as an atomic bundle directory.
 
     ``weight_dtype`` casts ``W`` before writing (``"bfloat16"`` rounds to
     nearest even, halving a whole-brain bundle).  Predict parity is then
-    defined against the *cast* weights.
+    defined against the *cast* weights.  ``weights`` (default
+    ``encoder.report_.weights``) is the full (p, t) matrix, which a
+    target-sharded encoder gathers first (``BrainEncoder.save``).
     """
     report = encoder.report_
     if report is None:
@@ -134,7 +137,8 @@ def save_bundle(bundle_dir: str, encoder, *, overwrite: bool = False,
     if os.path.exists(bundle_dir) and not overwrite:
         raise BundleError(f"bundle already exists at {bundle_dir}; "
                           f"pass overwrite=True to replace it")
-    W = torch.as_tensor(report.weights).detach().cpu()
+    W = torch.as_tensor(report.weights if weights is None
+                        else weights).detach().cpu()
     if weight_dtype is not None:
         W = W.to(_torch_dtype(weight_dtype))
     p, t = W.shape
@@ -369,31 +373,57 @@ class EncoderBundle:
                      device: torch.device | str | None = None):
         """Materialise a fitted ``BrainEncoder`` (no refit) on ``device``
         (CUDA unless ``device="cpu"``).  ``mmap=True`` reads the weight
-        shards through read-only memmaps.  ``target_shards`` > 1 (a
-        column-sharded serving layout over several devices) is not ported
-        yet."""
-        from repro_torch.encoding.estimator import BrainEncoder, EncodingReport
+        shards through read-only memmaps.
 
-        if target_shards is not None and target_shards > 1:
-            raise NotImplementedError(
-                "load_encoder(target_shards > 1) is not ported yet: sharded "
-                "layouts come with ROADMAP queue 1, item 9 (multi-device)")
+        ``target_shards`` > 1 is the serving layout over the ranks of
+        ``torch.distributed``: a ``(1, target_shards)`` mesh (every rank
+        calls ``load_encoder``), each rank holding its column block of
+        ``W`` on its device; ``predict`` computes the local block and
+        gathers the columns.  ``t`` must divide evenly and the world must
+        have the ranks."""
+        from repro_torch.core import compat
+        from repro_torch.encoding.estimator import BrainEncoder, EncodingReport
+        from repro_torch.encoding.sharding import ShardingPlan
+
         dev = resolve_device(device)
         m = self.manifest
+        cfg = self.config()
         arrays = self.load_arrays(
             [k for k in self._leaves() if not k.startswith("W/")])
-        blocks = [self.load_weight_shard(i, mmap=mmap)
-                  for i in range(m["weight_shards"])]
+        shard = None
+        cols = (0, self.shape[1])
+        if target_shards is not None and target_shards > 1:
+            p, t = self.shape
+            if t % target_shards:
+                raise BundleError(
+                    f"t={t} targets do not divide over target_shards="
+                    f"{target_shards} for sharded load")
+            if target_shards > compat.device_count():
+                raise BundleError(
+                    f"sharded load wants {target_shards} devices, have "
+                    f"{compat.device_count()}")
+            plan = ShardingPlan(data_shards=1, target_shards=target_shards,
+                                data_axis=cfg.data_axis,
+                                target_axis=cfg.target_axis)
+            mesh = plan.build_mesh(dev)
+            shard = (mesh, plan.target_axis)
+            cols = plan.col_window(mesh, t)
+        lo, hi = cols
+        blocks = [self.load_weight_shard(i, mmap=mmap)[
+                      :, max(lo, slo) - slo:min(hi, shi) - slo]
+                  for i, (slo, shi) in enumerate(self.weight_shard_bounds())
+                  if slo < hi and lo < shi]
         W = blocks[0] if len(blocks) == 1 else np.concatenate(blocks, axis=1)
-        enc = BrainEncoder(self.config(), device=dev)
+        enc = BrainEncoder(cfg, device=dev)
         band = arrays.get("band_lambdas")
         enc.report_ = EncodingReport(
-            weights=as_tensor(W, dev),
+            weights=as_tensor(np.ascontiguousarray(W), dev),
             best_lambda=np.asarray(arrays["best_lambda"]),
             cv_scores=np.asarray(arrays["cv_scores"]),
             lambdas=tuple(m["report"]["lambdas"]),
             decision=self.decision(),
             band_lambdas=None if band is None else np.asarray(band))
+        enc.target_shard_ = shard
         enc.standardizer_ = self.load_standardizer(arrays, dev)
         return enc
 

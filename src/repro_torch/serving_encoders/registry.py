@@ -147,7 +147,11 @@ class EncoderRegistry:
     a miss loads the bundle, first evicting LRU entries until the new
     resident total fits the budget.  A single bundle that cannot fit at
     all raises ``RegistryError`` instead of thrashing.  ``target_shards``
-    > 1 (a column-sharded layout over several devices) is not ported yet.
+    > 1 loads every bundle column-sharded over a ``(1, target_shards)``
+    mesh of the ranks of ``torch.distributed`` (every rank constructs the
+    registry and makes the same calls), each rank charging the
+    reference's per-device account
+    (``bundle_resident_bytes(..., target_shards)``).
     """
 
     def __init__(self, *, device_memory_budget: int | None = None,
@@ -155,11 +159,6 @@ class EncoderRegistry:
                  mmap_weights: bool = True,
                  fault_policy: FaultPolicy | None = None,
                  device: torch.device | str | None = None):
-        if target_shards is not None and target_shards > 1:
-            raise NotImplementedError(
-                "EncoderRegistry(target_shards > 1) is not ported yet: "
-                "sharded layouts come with ROADMAP queue 1, item 9 "
-                "(multi-device)")
         self.device = resolve_device(device)
         self.device_memory_budget = device_memory_budget
         self.wave_rows = wave_rows
@@ -307,8 +306,9 @@ class EncoderRegistry:
             with obs.span("registry.load", model=name, bytes=need):
                 try:
                     encoder = retry_call(
-                        lambda: bundle.load_encoder(mmap=self.mmap_weights,
-                                                    device=self.device),
+                        lambda: bundle.load_encoder(
+                            target_shards=self.target_shards,
+                            mmap=self.mmap_weights, device=self.device),
                         self.fault_policy, "registry.load_encoder")
                 except BundleError:
                     raise

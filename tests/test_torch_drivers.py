@@ -61,9 +61,10 @@ def _port(module, *args, **kw):
 
 @pytest.mark.timeout(600)
 def test_encode_driver_backbone(tmp_path):
-    """One device: RidgeCV (the reference's 4-device B-MOR is item 9).
-    The saved bundle is the reference's format: its ``load_encoder``
-    predicts as the port's ``BrainEncoder.load`` does."""
+    """One device: RidgeCV (the 4-rank B-MOR run is
+    ``test_encode_driver_bmor_four_ranks``).  The saved bundle is the
+    reference's format: its ``load_encoder`` predicts as the port's
+    ``BrainEncoder.load`` does."""
     bundle = str(tmp_path / "bundle")
     out = _ok(_port("encode", "--backbone", "vgg16", "--n", "400",
                     "--targets", "64", "--save-bundle", bundle))
@@ -151,15 +152,55 @@ def test_encode_driver_mamba_smoke():
     assert "dispatch: solver=ridge mesh=1x1" in out
 
 
+# The B-MOR plans are ported and need a process group: started without
+# torch.distributed.run they refuse, naming it (the ids are the cases'
+# names from when they named ROADMAP item 9).
 @pytest.mark.parametrize("args,item", [
-    (["--solver", "bmor"], "item 9"),
-    (["--solver", "bmor_dual"], "item 9"),
-    (["--backbone", "qwen3-1.7b", "--smoke"], "item 12"),
+    pytest.param(["--solver", "bmor"], "torch.distributed.run",
+                 id="args0-item 9"),
+    pytest.param(["--solver", "bmor_dual"], "torch.distributed.run",
+                 id="args1-item 9"),
+    pytest.param(["--backbone", "qwen3-1.7b", "--smoke"], "item 12",
+                 id="args2-item 12"),
 ])
 def test_encode_driver_refuses_unported_naming_roadmap_item(args, item):
     p = _port("encode", "--n", "64", "--targets", "8", *args)
     assert p.returncode != 0
     assert item in p.stderr, p.stderr
+
+
+@pytest.mark.timeout(600)
+def test_encode_driver_bmor_four_ranks(tmp_path):
+    """``tests/test_drivers.py::test_encode_driver_backbone``'s 4-device
+    run, as four gloo ranks under ``torch.distributed.run``: dispatch
+    picks B-MOR, the encoding is significant, and rank 0 alone prints and
+    writes the bundle and its report."""
+    bundle = str(tmp_path / "bundle")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.encode",
+         "--device", "cpu", "--backbone", "vgg16", "--n", "400",
+         "--targets", "64", "--save-bundle", bundle],
+        capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "B-MOR fit" in p.stdout
+    assert "significant" in p.stdout
+    assert p.stdout.count("B-MOR fit") == 1       # rank 0 alone prints
+    assert "dispatch: solver=bmor mesh=" in p.stdout
+    assert sorted(os.listdir(bundle)) == ["bundle.json", "report.json",
+                                          "step_0"]
+    with open(os.path.join(bundle, "report.json")) as f:
+        report = json.load(f)
+    assert report["decision"]["solver"] == "bmor"
+    assert len(report["best_lambda"]) == report["decision"]["target_shards"]
+    # The reference reads the 4-rank fit's bundle.
+    X = np.random.default_rng(1).standard_normal((8, 128)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        BrainEncoder.load(bundle, device="cpu").predict(X).numpy(),
+        np.asarray(JBundle.open(bundle).load_encoder().predict(X)), **F32)
 
 
 def test_encode_driver_refuses_more_target_shards_than_devices():

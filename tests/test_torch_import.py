@@ -58,7 +58,8 @@ def test_port_has_every_slice_module():
               "repro_torch.launch.obscli", "repro_torch.launch.encode",
               "repro_torch.launch.wholebrain", "repro_torch.launch.serve",
               "repro_torch.launch.roofline_report",
-              "repro_torch.configs.vgg16_ridge"):
+              "repro_torch.configs.vgg16_ridge", "repro_torch.core.compat",
+              "repro_torch.core.bmor", "repro_torch.encoding.sharding"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):
@@ -140,15 +141,19 @@ def test_unported_plans_raise_not_implemented_naming_roadmap():
     from repro_torch.core.banded import BandedConfig
     from repro_torch.encoding import EncoderConfig, dispatch
 
-    # The multi-device plans (item 9) still raise, naming their item.
+    # The multi-device plans are ported: on one device they resolve to the
+    # reference's decision, and the fit refuses without a process group.
+    from repro_torch.encoding import BrainEncoder
     for solver in ("bmor", "bmor_dual"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-            dispatch.resolve(EncoderConfig(solver=solver), 100, 10, 5, 1,
-                             device="cpu")
-    # MOR and banded ridge (item 14) are ported: explicit solvers and an
-    # auto config with bands= resolve to the reference's decision.
+        with pytest.raises(RuntimeError, match="no torch.distributed "
+                                               "process group"):
+            BrainEncoder(solver=solver, device="cpu").fit(
+                torch.zeros(20, 4), torch.zeros(20, 3))
+    # MOR and banded ridge (item 14) and B-MOR are ported: explicit solvers
+    # and an auto config with bands= resolve to the reference's decision.
     for kw in (dict(solver="mor"), dict(solver="banded", bands=(5, 5)),
-               dict(bands=(5, 5))):
+               dict(bands=(5, 5)), dict(solver="bmor"),
+               dict(solver="bmor_dual")):
         got = dispatch.resolve(EncoderConfig(**kw), 100, 10, 5, 1,
                                device="cpu")
         want = jresolve(JConfig(**kw), 100, 10, 5, 1)

@@ -237,9 +237,15 @@ def test_accumulator_window_and_stream_validation():
         tfs.shard_row_ranges(4, 9)
     with pytest.raises(ValueError, match="at least one"):
         tfs.combine([])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfs.compute_sharded_chunked([_stream(X, Y, 0, 40, 8)], 40, 4,
-                                    mesh=object(), device="cpu")
+    # A mesh needs a process group; the sharded finalize itself runs in
+    # tests/test_torch_distributed.py's 8-rank world.
+    from repro_torch.core import compat
+    with pytest.raises(RuntimeError, match="no torch.distributed process "
+                                           "group"):
+        tfs.compute_sharded_chunked(
+            [_stream(X, Y, 0, 40, 8)], 40, 4,
+            mesh=compat.make_mesh((1,), ("data",), device="cpu"),
+            device="cpu")
 
 
 def test_column_moments_match_numpy_and_jax():

@@ -170,8 +170,15 @@ def test_registry_budget_refusal_recharge_and_names(fleet_dir):
             reg.get("m0")
         with pytest.raises(err, match="over the registry budget"):
             reg.ensure_servable("m0")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EncoderRegistry(target_shards=2, device="cpu")
+    # A target-sharded load needs a world of that many ranks, as the
+    # reference's needs the devices (tests/test_torch_distributed.py runs
+    # one in an 8-rank world).
+    from repro.serving_encoders.bundle import BundleError as JBundleError
+    treg, jreg = _registries(fleet_dir, ("wide",), target_shards=7)
+    for reg, err in ((treg, BundleError), (jreg, JBundleError)):
+        with pytest.raises(err, match="sharded load wants 7 devices, "
+                                      "have 1"):
+            reg.get("wide")
 
 
 def test_get_columns_shard_loads_match_reference(fleet_dir):

@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs eighteen phases, each of which
+nvcc into ``build/kernels/``, then runs nineteen phases, each of which
 raises (exit code 1) on a failed check (``--only 14,16`` runs the build
-and just the listed phases, 6 and 12 to 18, and prints no result lines):
+and just the listed phases, 6 and 12 to 19, and prints no result lines):
 
 1. Environment: versions, TF32 switches (all off), card name and power
    limit, kernel build time (one nvcc per source, in parallel) and the
@@ -221,6 +221,28 @@ and just the listed phases, 6 and 12 to 18, and prints no result lines):
     launch against its plain version; the ranks' launches, seconds and
     each ``all_reduce``/gather's bytes and seconds are printed (gloo
     moves CUDA tensors through host memory: not NVLink's rates).
+19. LM serving (``--only 19``; random bf16 weights from a seeded
+    generator on the card, the kernel switches on through
+    ``configs.for_device``).  (a) ``serve.main`` in this process for
+    zamba2-2.7b at full width and depth, batch 8, prompt 256, 32 tokens:
+    54 ``ssd_intra`` launches in its prefill, the first launch of each
+    operand shape held against ``ref.ssd_intra``.  (b) ``serve --arch
+    qwen3-1.7b`` at the reference's defaults (no kernel on its path).
+    (c) gemma2-2b at full width and depth through ``ServeEngine`` with the
+    flash path on (``flash_threshold = flash_block = 512``): a wave of 2
+    prompts of 8,192 tokens, 32 greedy tokens, 26 ``flash_attention``
+    launches in the prefill (head dimension 256, the local layers'
+    4,096-key window, softcap 50); one local and one global launch held
+    against ``ref.mha_flash`` and timed beside it and the bound.  (d)
+    phi3.5-moe-42b-a6.6b (4 of 32 layers) through ``ServeEngine`` and
+    llava-next-34b (8 of 60 layers) through ``prefill``/``decode_step``
+    with ``make_batch``'s prefix embeddings, 2 × 2,048 positions, 16
+    tokens, one flash launch per layer.  (e) gemma2-2b (1 × 8,192) and
+    zamba2-2.7b (1 × 1,024) at 2 pattern repeats with the kernel switches
+    on and off: in f32 the prefill logits within 2e-4·max|logits| and 16
+    greedy tokens equal; in bf16 the count of equal tokens is printed.
+    Each run prints its prefill seconds, decode tokens/s, peak device
+    memory and launches.
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -346,6 +368,25 @@ WB_DRIVER_CAP_MB = 1280.0
 DIST_N, DIST_FOLDS, DIST_CHUNK_ROWS = 36_864, 3, 4_096
 DIST_TIMEOUT_S = 600
 DIST_TOL = dict(rtol=1e-4, atol=2e-4)
+# Phase 19: LM serving.  (a) the hybrid through the driver at full width
+# and depth; (c) gemma2-2b with the flash path on (flash_threshold =
+# flash_block = 512, as phases 8-9 set them; the reference leaves both
+# None, so serve --arch at its defaults never reaches the flash path) on
+# prompts long enough that the local layers' 4,096-key window bites; (d)
+# the MoE and VLM archs at full width, depth cut to what one card holds
+# with room for the cache (phi3.5-moe: 84 GB of bf16 weights whole;
+# llava-next-34b: 69 GB); (e) kernel path against plain path in f32 at 2
+# pattern repeats, prefill logits within LM_F32_TOL·max|logits| (f32
+# summation order in the flash and SSD kernels) and the greedy tokens
+# equal.
+LM_HYBRID = ["--arch", "zamba2-2.7b", "--batch", "8", "--prompt-len", "256",
+             "--gen", "32", "--device", "cuda"]
+LM_FLASH = 512
+LM_WAVE, LM_PROMPT, LM_GEN = 2, 8192, 32
+LM_CUT = {"phi3.5-moe-42b-a6.6b": 4, "llava-next-34b": 8}
+LM_CUT_PROMPT, LM_CUT_GEN = 2048, 16
+LM_F32 = {"gemma2-2b": 8192, "zamba2-2.7b": 1024}
+LM_F32_REPEATS, LM_F32_GEN, LM_F32_TOL = 2, 16, 2e-4
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -3918,18 +3959,339 @@ def phase_multidevice(card: str) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 19
+# --------------------------------------------------------------------------
+def _lm_cfg(arch: str, **over):
+    """The arch's config on the card's kernel tier (``for_device``), the
+    flash path reachable at LM_FLASH, with ``over`` applied."""
+    import dataclasses
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              flash_threshold=LM_FLASH, flash_block=LM_FLASH,
+                              **over)
+    return configs.for_device(cfg, "cuda")
+
+
+def _holding_lm(held: dict, keep: dict):
+    """``_patched`` triples holding the first ``mha_flash`` and
+    ``ssd_intra`` launch of each distinct operand shape and option set
+    against its plain version on its own operands (``_close``: one bf16
+    ulp for a bf16 output, 2e-4 for f32); ``held[key]`` is the max abs
+    error.  The operands of each held flash launch are kept in ``keep``
+    for timing.  The plain calls launch nothing."""
+    from repro_torch.kernels import ops, ref
+
+    flash, ssd_intra = ops.mha_flash, ops.ssd_intra
+
+    def hold_flash(q, k, v, n_kv, *, causal=True, window=None,
+                   softcap=None):
+        out = flash(q, k, v, n_kv, causal=causal, window=window,
+                    softcap=softcap)
+        key = (f"mha_flash q={tuple(q.shape)} k={tuple(k.shape)} "
+               f"window={window} softcap={softcap} "
+               f"{str(q.dtype).removeprefix('torch.')}")
+        if key not in held:
+            held[key] = _close(key, out, ref.mha_flash(
+                q, k, v, n_kv, causal=causal, window=window,
+                softcap=softcap).contiguous())
+            keep[key] = (q.clone(), k.clone(), v.clone(), n_kv, window,
+                         softcap)
+        return out
+
+    def hold_ssd(cb, la, x):
+        out = ssd_intra(cb, la, x)
+        key = (f"ssd_intra cb={tuple(cb.shape)} la={tuple(la.shape)} "
+               f"x={tuple(x.shape)} {str(x.dtype).removeprefix('torch.')}")
+        if key not in held:
+            held[key] = _close(key, out, ref.ssd_intra(cb, la, x))
+        return out
+
+    return [(ops, "mha_flash", hold_flash), (ops, "ssd_intra", hold_ssd)]
+
+
+def _serve_in_process(tag: str, argv: list[str], card: str, patches
+                      ) -> tuple[str, dict, float, float]:
+    """``launch/serve.py``'s ``main(argv)`` (LLM mode) in this process,
+    its kernel launches counted from zero.  → (output, launches, seconds,
+    peak device GiB)."""
+    import io
+    import torch
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _patched(*patches), contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in out.getvalue().splitlines():
+        print(f"[lm]   {tag}: {line}")
+    print(f"[lm] {tag}: serve {' '.join(argv)}: {wall:.2f} s in process "
+          f"(parameter draw included), peak device memory {peak:.2f} GiB, "
+          f"launches {launches} [{card}]")
+    return out.getvalue(), launches, wall, peak
+
+
+def _flash_bound_ms(b, s, h, kd, window, softcap, card) -> tuple[float, str]:
+    """The bf16 flash design's bound (phase 7's three terms) over the
+    causal pairs a window leaves visible; a softcap adds one tanh per pair
+    at the SFU rate."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) / 2 + (s - w) * w
+    half = 2.0 * b * h * kd * pairs
+    t_tc = 4 * half / bf16_peak(card)
+    t_sfu = (2 if softcap else 1) * b * h * pairs / (bf16_peak(card) / 256)
+    t_bytes = 4 * b * h * s * kd * 2 / peaks(card)[1]
+    by = "operations" if max(t_tc, t_sfu) >= t_bytes else "bytes"
+    return max(t_tc, t_sfu, t_bytes) * 1e3, by
+
+
+def _greedy(model, params, batch, start: int, steps: int):
+    """Prefill, then ``steps`` greedy tokens (the first from the prefill's
+    logits) → (prefill logits, tokens (B, steps))."""
+    import torch
+
+    logits, cache = model.prefill(params, batch)
+    first = logits
+    toks = []
+    for i in range(steps):
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        toks.append(tok)
+        if i < steps - 1:
+            logits, cache = model.decode_step(params, cache, tok, start + i)
+    return first, torch.cat(toks, 1)
+
+
+def phase_lm_serving(card: str) -> dict:
+    """Phase 19: LM serving — the prefill and decode of every model
+    family through the drivers and ``ServeEngine``.  → kernel launches of
+    the serving runs (the f32 path comparison's are checks)."""
+    import dataclasses
+    import re
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import attention, ref
+    from repro_torch.models import build_model
+    from repro_torch.models.params import param_bytes
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    total = {"flash_attention": 0, "ssd_intra": 0}
+    held, keep = {}, {}
+    patches = _holding_lm(held, keep)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def numbers(out):
+        pre = float(re.search(r"prefill: ([\d.]+)s", out).group(1))
+        tps = float(re.search(r"\(([\d.]+) tok/s\)", out).group(1))
+        toks = json.loads(re.search(r"sample tokens: (\[.*\])",
+                                    out).group(1))
+        return pre, tps, toks
+
+    # (a) The hybrid at full width and depth through the driver.
+    cfg = configs.get_config("zamba2-2.7b")
+    out, launches, _, peak = _serve_in_process("zamba2-2.7b", LM_HYBRID,
+                                               card, patches)
+    pre, tps, toks = numbers(out)
+    n_mamba = cfg.n_repeats * sum(k == "mamba" for k in cfg.pattern)
+    check(launches == dict({k: 0 for k in launches}, ssd_intra=n_mamba)
+          and n_mamba == 54, f"zamba2 serve launches {launches}")
+    check("logits (8, 1, 32000)" in out and len(toks) == 12
+          and all(0 <= t < cfg.vocab for t in toks), "zamba2 serve output")
+    print(f"[lm] zamba2-2.7b full depth, B=8, prompt 256, 32 tokens: "
+          f"prefill {pre:.2f} s, decode {tps:.1f} tok/s, peak "
+          f"{peak:.2f} GiB, ssd_intra {launches['ssd_intra']} per prefill "
+          f"[{card}]")
+    add(launches)
+    # (b) The dense default a user runs: serve --arch qwen3-1.7b.
+    out, launches, _, peak = _serve_in_process(
+        "qwen3-1.7b", ["--arch", "qwen3-1.7b", "--device", "cuda"], card,
+        patches)
+    pre, tps, toks = numbers(out)
+    check(not any(launches.values()), f"qwen3 serve at the reference's "
+          f"defaults reaches no kernel, launched {launches}")
+    check("logits (2, 1, 151936)" in out and len(toks) == 12
+          and all(0 <= t < 151_936 for t in toks), "qwen3 serve output")
+    print(f"[lm] qwen3-1.7b full depth, B=2, prompt 16, 16 tokens: prefill "
+          f"{pre:.2f} s, decode {tps:.1f} tok/s, peak {peak:.2f} GiB [{card}]")
+    free()
+
+    # (c) gemma2-2b through ServeEngine with the flash path on.
+    def engine_run(tag, cfg, wave, prompt_len, gen, seed):
+        model = build_model(cfg)
+        g = torch.Generator("cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        params = model.init(g, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        timers = {"prefill": 0.0, "decode": 0.0}
+        model.prefill = _timed(model.prefill, timers, "prefill")
+        model.decode_step = _timed(model.decode_step, timers, "decode")
+        prompts = torch.randint(1, cfg.vocab, (wave, prompt_len),
+                                generator=g, device="cuda").tolist()
+        engine = ServeEngine(model, params, cfg, wave_size=wave,
+                             prompt_len=prompt_len, device="cuda")
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        with _patched(*patches):
+            res = engine.serve([ServeRequest(p, max_new_tokens=gen)
+                                for p in prompts])
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(len(r.tokens) == gen and all(0 <= t < cfg.vocab
+                                                for t in r.tokens)
+                  for r in res), f"{tag}: served tokens")
+        tps = wave * (gen - 1) / timers["decode"]
+        print(f"[lm] {tag}: {param_bytes(model.param_defs()) / 1e9:.2f} GB "
+              f"of bf16 weights drawn in {init_s:.2f} s; ServeEngine wave "
+              f"{wave} × prompt {prompt_len}: prefill {timers['prefill']:.3f}"
+              f" s, {gen - 1} decode steps {timers['decode']:.3f} s "
+              f"({tps:.1f} tok/s), peak {peak:.2f} GiB, launches {launches} "
+              f"[{card}]")
+        del params, engine, model
+        free()
+        return launches
+
+    cfg = _lm_cfg("gemma2-2b")
+    launches = engine_run("gemma2-2b full depth", cfg, LM_WAVE, LM_PROMPT,
+                          LM_GEN, 19)
+    check(launches == dict({k: 0 for k in launches},
+                           flash_attention=cfg.n_layers) and
+          cfg.n_layers == 26, f"gemma2 engine launches {launches}")
+    add(launches)
+    # The held local and global launches, timed beside the plain version.
+    for key, (q, k, v, n_kv, window, softcap) in keep.items():
+        ms = time_ms(lambda: attention.mha_flash(
+            q, k, v, n_kv, window=window, softcap=softcap), 3)
+        plain_ms = time_ms(lambda: ref.mha_flash(
+            q, k, v, n_kv, window=window, softcap=softcap), 1)
+        bound, by = _flash_bound_ms(q.shape[0], q.shape[1], q.shape[2],
+                                    q.shape[3], window, softcap, card)
+        print(f"[lm] flash {key}: max abs err {held[key]:.3e} (rtol "
+              f"{FLASH_TOL['bfloat16']['rtol']:g}/atol "
+              f"{FLASH_TOL['bfloat16']['atol']:g}); kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, library none (SDPA takes no "
+              f"softcap), bound {bound:.3f} ms ({by}) [{card}]")
+    check(len(keep) == 2, f"gemma2: {len(keep)} flash variants held, want "
+          f"a local and a global one")
+    keep.clear()
+    free()
+
+    # (d) MoE and VLM at full width, depth cut (their flash launches are
+    # held, not timed).
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg = _lm_cfg(arch, n_layers=LM_CUT[arch])
+    launches = engine_run(f"{arch} ({cfg.n_layers} of 32 layers)", cfg,
+                          LM_WAVE, LM_CUT_PROMPT, LM_CUT_GEN, 20)
+    check(launches == dict({k: 0 for k in launches},
+                           flash_attention=cfg.n_layers),
+          f"{arch} launches {launches}")
+    add(launches)
+    arch = "llava-next-34b"
+    cfg = _lm_cfg(arch, n_layers=LM_CUT[arch])
+    model = build_model(cfg)
+    g = torch.Generator("cuda").manual_seed(21)
+    params = model.init(g, device="cuda")
+    batch = synthetic.make_batch(g, cfg, LM_WAVE, LM_CUT_PROMPT, "prefill",
+                                 device="cuda")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _patched(*patches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        pre = time.perf_counter() - t0
+        launches = _counters()
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        t0 = time.perf_counter()
+        for i in range(LM_CUT_GEN - 1):
+            logits, cache = model.decode_step(params, cache, tok,
+                                              LM_CUT_PROMPT + i)
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        dec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(logits).all()), "llava logits not finite")
+    check(launches == dict({k: 0 for k in launches},
+                           flash_attention=cfg.n_layers),
+          f"{arch} launches {launches}")
+    print(f"[lm] {arch} ({cfg.n_layers} of 60 layers): "
+          f"{param_bytes(model.param_defs()) / 1e9:.2f} GB of bf16 weights; "
+          f"prefill of {LM_WAVE} × ({LM_CUT_PROMPT // 2} prefix embeddings + "
+          f"{LM_CUT_PROMPT // 2} tokens) {pre:.3f} s, {LM_CUT_GEN - 1} decode"
+          f" steps {dec:.3f} s ({LM_WAVE * (LM_CUT_GEN - 1) / dec:.1f} "
+          f"tok/s), peak {peak:.2f} GiB, launches {launches} [{card}]")
+    add(launches)
+    del params, model, cache, logits, batch
+    keep.clear()
+    free()
+    print(f"[lm] held launches: " + "; ".join(
+        f"{k}: {v:.3e}" for k, v in held.items()) + f" [{card}]")
+
+    # (e) Kernel path against plain path, f32 then bf16, 2 repeats.
+    for arch, seq in LM_F32.items():
+        for dt in (torch.float32, torch.bfloat16):
+            base = configs.get_config(arch)
+            kern = _lm_cfg(arch, param_dtype=dt, n_layers=len(base.pattern)
+                           * LM_F32_REPEATS)
+            plain = configs.for_device(kern, "cpu")
+            g = torch.Generator("cuda").manual_seed(22)
+            params = build_model(kern).init(g, device="cuda")
+            batch = synthetic.make_batch(g, kern, 1, seq, "prefill",
+                                         device="cuda")
+            _reset_counters()
+            lk, tk = _greedy(build_model(kern), params, batch, seq,
+                             LM_F32_GEN)
+            launches = _counters()
+            lp, tp = _greedy(build_model(plain), params, batch, seq,
+                             LM_F32_GEN)
+            check(not any(_counters()[k] - launches[k] for k in launches),
+                  f"{arch}: the plain path launched a kernel")
+            err = (lk - lp).abs().max().item()
+            scale = lp.abs().max().item()
+            same = int((tk == tp).sum())
+            print(f"[lm] {arch} {kern.n_layers} layers, {str(dt)[6:]}, "
+                  f"1 × {seq}: kernel path (launches {launches}) against "
+                  f"the plain path: prefill logits max err {err:.3e} of "
+                  f"max|logits| {scale:.4e}; {same} of {LM_F32_GEN} greedy "
+                  f"tokens equal [{card}]")
+            if dt == torch.float32:
+                check(err <= LM_F32_TOL * scale, f"{arch} f32 logits "
+                      f"{err:.3e} > {LM_F32_TOL:g}·{scale:.3e}")
+                check(same == LM_F32_GEN, f"{arch} f32 greedy tokens differ")
+                check(launches["flash_attention"] > 0,
+                      f"{arch}: the kernel path launched no flash")
+            del params, batch
+            free()
+    print(f"[lm] phase 19 launches {total} [{card}]")
+    return total
+
+
 def _selected(argv: list[str]) -> set[int] | None:
     """``--only 14,16`` runs phase 1 and the listed independent phases
-    (6 and 12 to 18) and prints no result lines: a quick check while
+    (6 and 12 to 19) and prints no result lines: a quick check while
     working on them.  With no arguments every phase runs."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
-                         "(N in 6, 12..18)")
+                         "(N in 6, 12..19)")
     only = {int(v) for v in argv[1].split(",")}
-    if not only <= {6, 12, 13, 14, 15, 16, 17, 18}:
-        raise SystemExit(f"--only takes phases 6 and 12 to 18, got "
+    if not only <= {6, 12, 13, 14, 15, 16, 17, 18, 19}:
+        raise SystemExit(f"--only takes phases 6 and 12 to 19, got "
                          f"{sorted(only)}")
     return only
 
@@ -3953,7 +4315,8 @@ def main(argv: list[str]) -> int:
                          (13, phase_wholebrain_parity),
                          (14, phase_mor), (15, phase_banded),
                          (16, phase_serving), (17, phase_drivers),
-                         (18, phase_multidevice)):
+                         (18, phase_multidevice),
+                         (19, phase_lm_serving)):
             if n in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -4010,6 +4373,10 @@ def main(argv: list[str]) -> int:
     for k, v in phase_multidevice(card).items():
         launches[k] += v
     print(f"[done] phase 18 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, v in phase_lm_serving(card).items():
+        launches[k] += v
+    print(f"[done] phase 19 passed in {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("split_engine.cu",
                            "src/repro/kernels/gram.py:158"),

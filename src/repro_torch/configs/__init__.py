@@ -2,12 +2,13 @@
 
 Port of ``repro/configs/__init__.py``.  ``ARCH_IDS`` lists every
 architecture of the reference; the port carries the configs of the
-families it runs (``ssm`` and ``hybrid`` through ``HybridLM``):
-``mamba2-130m`` and ``zamba2-2.7b``.  ``smoke(cfg)`` derives the reduced
-same-family variant of the CPU tests (≤2 pattern slots, d_model 256).
-``for_device(cfg, device)`` turns the hand-written kernel tier on iff the
-device is CUDA, the rule ``EncoderConfig.use_pallas=None`` applies to
-the fit.
+families it runs (``dense``/``moe``/``vlm`` through ``DecoderLM``,
+``ssm``/``hybrid`` through ``HybridLM``): every arch but
+``seamless-m4t-medium``, whose ``EncDecLM`` is ROADMAP queue 1 item 12.
+``smoke(cfg)`` derives the reduced same-family variant of the CPU tests
+(≤2 pattern slots, d_model 256).  ``for_device(cfg, device)`` turns the
+hand-written kernel tier on iff the device is CUDA, the rule
+``EncoderConfig.use_pallas=None`` applies to the fit.
 """
 from __future__ import annotations
 
@@ -33,7 +34,14 @@ ARCH_IDS = (
 
 _MODULES = {
     "mamba2-130m": "mamba2_130m",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "llava-next-34b": "llava_next_34b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "gemma-7b": "gemma_7b",
+    "grok-1-314b": "grok1_314b",
+    "gemma3-12b": "gemma3_12b",
+    "gemma2-2b": "gemma2_2b",
 }
 
 
@@ -42,9 +50,8 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
     if arch not in _MODULES:
         raise NotImplementedError(
-            f"{arch!r} is not ported yet: the port runs {sorted(_MODULES)} "
-            f"(HybridLM); the other model families are ROADMAP queue 1 "
-            f"item 12")
+            f"{arch!r} is not ported yet: the audio family's EncDecLM is "
+            f"ROADMAP queue 1 item 12")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

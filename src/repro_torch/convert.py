@@ -1,9 +1,10 @@
 """Carry state across packages: numpy arrays → the port's objects.
 
 A fit made by the JAX package, exported as numpy arrays, becomes the
-port's ``FoldStats`` or a fitted ``BrainEncoder`` here, and a backbone's
-parameter tree becomes the port's parameters, so both packages can be held
-to the same statistics, weights and forward.
+port's ``FoldStats`` or a fitted ``BrainEncoder`` here, a model's
+parameter tree becomes the port's parameters and a prefill's decode cache
+the port's cache, so both packages can be held to the same statistics,
+weights, forward and decode.
 """
 from __future__ import annotations
 
@@ -55,6 +56,29 @@ def encoder_from_numpy(weights, best_lambda, cv_scores, lambdas,
     return enc
 
 
+def _tree_from_numpy(tree, defs, dev, free_axes=()) -> dict:
+    """``tree``'s leaves as tensors on ``dev`` (dtypes kept), its keys and
+    shapes checked against the ``ParamDef`` tree ``defs``; a dimension on
+    one of ``free_axes`` may take any size."""
+    def walk(t, d, path):
+        if isinstance(d, dict):
+            if not isinstance(t, dict) or set(t) != set(d):
+                got = sorted(t) if isinstance(t, dict) else type(t).__name__
+                raise ValueError(f"tree at {path or '/'}: keys {got}, want "
+                                 f"{sorted(d)}")
+            return {k: walk(t[k], d[k], f"{path}/{k}") for k in sorted(d)}
+        a = np.asarray(t)
+        want = tuple(None if ax in free_axes else n
+                     for n, ax in zip(d.shape, d.axes))
+        if a.ndim != len(want) or any(w is not None and w != n
+                                      for n, w in zip(a.shape, want)):
+            raise ValueError(f"leaf {path}: shape {a.shape}, want "
+                             f"{d.shape} (any size on axes {free_axes})")
+        return as_tensor(np.ascontiguousarray(a), dev)
+
+    return walk(tree, defs, "")
+
+
 def model_params_from_numpy(tree: dict, cfg: ModelConfig, *,
                             device: torch.device | str | None = None) -> dict:
     """The port's parameters of ``build_model(cfg)`` from a parameter tree
@@ -63,20 +87,17 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig, *,
     ``bfloat16`` or ``uint16`` bit patterns (``device.host_view``).  Every
     leaf keeps its dtype; keys and shapes are checked against the port's
     ``param_defs()``."""
-    dev = resolve_device(device)
-    defs = build_model(cfg).param_defs()
+    return _tree_from_numpy(tree, build_model(cfg).param_defs(),
+                            resolve_device(device))
 
-    def walk(t, d, path):
-        if isinstance(d, dict):
-            if not isinstance(t, dict) or set(t) != set(d):
-                got = sorted(t) if isinstance(t, dict) else type(t).__name__
-                raise ValueError(f"parameter tree at {path or '/'}: keys "
-                                 f"{got}, want {sorted(d)}")
-            return {k: walk(t[k], d[k], f"{path}/{k}") for k in sorted(d)}
-        a = np.asarray(t)
-        if tuple(a.shape) != tuple(d.shape):
-            raise ValueError(f"parameter {path}: shape {a.shape}, want "
-                             f"{d.shape}")
-        return as_tensor(np.ascontiguousarray(a), dev)
 
-    return walk(tree, defs, "")
+def cache_from_numpy(tree: dict, cfg: ModelConfig, *,
+                     device: torch.device | str | None = None) -> dict:
+    """The port's decode cache of ``build_model(cfg)`` from a cache tree as
+    numpy (a JAX ``prefill``'s or ``decode_step``'s cache through
+    ``np.asarray``), ready for the port's ``decode_step``.  Every leaf
+    keeps its dtype; keys and shapes are checked against the port's
+    ``cache_defs``, at any batch size and cache length."""
+    return _tree_from_numpy(tree, build_model(cfg).cache_defs(1, 1),
+                            resolve_device(device),
+                            free_axes=("batch", "cache_seq"))

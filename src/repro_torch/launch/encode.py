@@ -25,9 +25,10 @@ On CUDA the in-memory fits launch the ``xty_folds`` kernel, the streamed
 term ``ssd_intra`` (the kernel tier is on iff the device is CUDA:
 ``EncoderConfig.use_pallas=None`` for the fit, ``configs.for_device`` for
 the backbone).  ``--solver bmor|bmor_dual`` needs a process group (one
-rank is enough), and ``--target-shards`` at most the world's ranks;
-architectures other than zamba2-2.7b and mamba2-130m raise, naming item
-12.
+rank is enough), and ``--target-shards`` at most the world's ranks.
+Every architecture but ``seamless-m4t-medium`` (ROADMAP queue 1 item 12)
+gives its final hidden states as features: a ``vlm`` batch carries the
+vision stub's prefix rows as well, as in the reference.
 """
 from __future__ import annotations
 

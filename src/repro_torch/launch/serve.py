@@ -1,9 +1,21 @@
-"""Serving driver: the brain-encoder serving loop and its worker fleet.
+"""Serving driver: batched LLM decode, or the brain-encoder serving loop
+and its worker fleet.
 
-Port of the encoder and fleet modes of ``repro/launch/serve.py``, with
-the reference's flags, printed lines and gates; ``--device`` (default
-CUDA, which fails without a card) is the port's one addition, and the
-fleet parent forwards it to its workers.
+Port of ``repro/launch/serve.py``, with the reference's flags, printed
+lines and gates; ``--device`` (default CUDA, which fails without a card)
+is the port's one addition, and the fleet parent forwards it to its
+workers.
+
+LLM mode (prefill + greedy decode)::
+
+    python -m repro_torch.launch.serve --arch <id> --smoke --batch 2 \
+        --prompt-len 16 --gen 16
+
+builds the arch's model with random weights (``init`` from a seeded
+``torch.Generator``), prefills a random batch and decodes ``--gen``
+greedy tokens; on CUDA the hand-written kernels run where the model's
+switches reach them (``configs.for_device``).  The audio arch
+(``seamless-m4t-medium``, ``EncDecLM``) is ROADMAP queue 1 item 12.
 
 Encoder mode (materialise → fit → save → serve loop)::
 
@@ -30,9 +42,6 @@ residency view when the workers drain.  Per-worker knobs: ``--worker-id``
 is a typed rejection, not a stall), and ``--replay-trace PATH`` to serve
 the checked-in deterministic mixed-traffic trace instead of random ragged
 traffic.
-
-LLM mode (``--arch``: prefill + greedy decode) needs the decode path and
-``serving/engine.py``, which are ROADMAP queue 1 item 12; it raises.
 """
 from __future__ import annotations
 
@@ -268,8 +277,7 @@ def main(argv: list[str] | None = None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="LLM mode: model architecture id (not ported: "
-                         "ROADMAP queue 1 item 12)")
+                    help="LLM mode: model architecture id")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -328,10 +336,48 @@ def main(argv: list[str] | None = None) -> None:
         return
     if args.arch is None:
         ap.error("--arch is required in LLM mode (or pass --encoders N)")
-    raise NotImplementedError(
-        f"serve --arch {args.arch} (LLM prefill + decode) is not ported "
-        f"yet: the decode path and serving/engine.py are ROADMAP queue 1 "
-        f"item 12")
+    _run_llm_mode(args, dev)
+
+
+def _run_llm_mode(args, dev) -> None:
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import build_model
+
+    def clock() -> float:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.time()
+
+    cfg = configs.get_config(args.arch)
+    if args.smoke:
+        cfg = configs.smoke(cfg)
+    cfg = configs.for_device(cfg, dev)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev.type).manual_seed(0), device=dev)
+
+    batch = make_batch(torch.Generator(dev.type).manual_seed(1), cfg,
+                       args.batch, args.prompt_len, kind="prefill",
+                       device=dev)
+    t0 = clock()
+    logits, cache = model.prefill(params, batch)
+    print(f"prefill: {clock()-t0:.2f}s  logits {tuple(logits.shape)}")
+
+    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    start_pos = args.prompt_len
+    out_tokens = [tok]
+    t0 = clock()
+    for i in range(args.gen - 1):
+        logits, cache = model.decode_step(params, cache, tok, start_pos + i)
+        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        out_tokens.append(tok)
+    dt = clock() - t0
+    toks = torch.cat(out_tokens, dim=1)
+    print(f"decoded {args.gen} tokens × batch {args.batch} in {dt:.2f}s "
+          f"({args.gen*args.batch/max(dt,1e-9):.1f} tok/s)")
+    print("sample tokens:", toks[0, :12].tolist())
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
-"""Shared transformer building blocks: norms, RoPE, GQA attention, gated
-MLPs, embeddings.
+"""Shared transformer building blocks: norms, RoPE, GQA attention (full
+sequence and cached decode), gated MLPs, embeddings and the head.
 
-Port of ``repro/models/layers.py`` (full-sequence forward; decode and
-``unembed`` wait for ROADMAP queue 1 item 12).  Every block is a plain
+Port of ``repro/models/layers.py``.  Every block is a plain
 function over a nested dict of tensors described by the ``*_defs``
 ``ParamDef`` trees.  Where the reference asks for f32 accumulation
 (``preferred_element_type=float32``) the operands are upcast to f32 first:
@@ -13,7 +12,8 @@ Attention runs one of three paths, on the reference's switches:
 ``flash_threshold``/``flash_block`` pick the streaming path, and
 ``flash_kernel`` picks the hand-written kernel (``kernels.ops.mha_flash``)
 over the plain block loop (``_blockwise_attention``); otherwise the scores
-are materialised.
+are materialised.  ``attention_decode`` attends one token against a ring
+KV cache that it updates in place.
 """
 from __future__ import annotations
 
@@ -67,6 +67,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def positions(b: int, s: int, device) -> torch.Tensor:
+    """Absolute positions 0 … s−1 of a (b, s) batch, int32."""
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(
+        b, s)
 
 
 def _softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -225,10 +231,18 @@ def attention(p: Params, cfg: ModelConfig, var: AttnVariant, x: torch.Tensor,
                          device=kv_x.device)[None].expand(kv_x.shape[:2])
         if var.use_rope:
             k = rope(k, kv_pos, cfg.rope_theta)
+    return attend(p, cfg, var, q, k, v, positions, kv_pos)
 
+
+def attend(p: Params, cfg: ModelConfig, var: AttnVariant, q: torch.Tensor,
+           k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+           kv_pos: torch.Tensor) -> torch.Tensor:
+    """``attention`` after the projections: q (B,S,H,K) pre-scaled, k/v
+    (B,T,N,K) → the output projection (B,S,d).  The prefill calls it on
+    the k/v it also keeps as the cache."""
     if cfg.flash_threshold is not None and \
-            x.shape[1] >= cfg.flash_threshold and \
-            x.shape[1] % cfg.flash_block == 0 and \
+            q.shape[1] >= cfg.flash_threshold and \
+            q.shape[1] % cfg.flash_block == 0 and \
             k.shape[1] % cfg.flash_block == 0:
         if cfg.flash_kernel:
             # The kernel tiles the sequence itself; flash_block only
@@ -252,6 +266,64 @@ def attention(p: Params, cfg: ModelConfig, var: AttnVariant, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# -- cached decode -----------------------------------------------------------
+
+def attn_cache_defs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = cfg.param_dtype
+    return {
+        "k": ParamDef((batch, cache_len, kv, hd),
+                      ("batch", "cache_seq", "kv", None), dtype=dt,
+                      init="zeros"),
+        "v": ParamDef((batch, cache_len, kv, hd),
+                      ("batch", "cache_seq", "kv", None), dtype=dt,
+                      init="zeros"),
+    }
+
+
+def ring_cache(x: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """The last ``cache_len`` positions of x (B, S, …) as a ring cache:
+    rolled so that position t sits in slot ``t % cache_len``, where
+    ``attention_decode`` looks for it."""
+    s = x.shape[1]
+    return torch.roll(x[:, -cache_len:], s % cache_len, dims=1)
+
+
+def attention_decode(p: Params, cfg: ModelConfig, var: AttnVariant,
+                     x: torch.Tensor, pos: int | torch.Tensor, cache: dict
+                     ) -> tuple[torch.Tensor, dict]:
+    """One-token decode against a (possibly ring) KV cache.
+
+    x: (B, 1, d); pos: the current absolute position (a Python int or a
+    0-d integer tensor, shared by the batch); cache["k"/"v"]: (B, C, N, K).
+    The new key and value are written in place into slot ``pos % C`` of
+    the cache's tensors (views into a stacked cache write through), which
+    are returned.  Keys are stored RoPE-rotated at their absolute write
+    position, so ring wraparound keeps relative phases exact.
+    """
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, pos.expand(b, 1))
+    C = cache["k"].shape[1]
+    slot = (pos % C).reshape(1)
+    k, v = cache["k"], cache["v"]
+    k.index_copy_(1, slot, k_new.to(k.dtype))
+    v.index_copy_(1, slot, v_new.to(v.dtype))
+    scores = _gqa_scores(q, k, cfg.n_kv_heads)       # (B,N,G,1,C)
+    scores = _softcap(scores, var.softcap)
+    # Slot j holds absolute position pos - ((pos - j) mod C); valid iff ≥ 0.
+    j = torch.arange(C, dtype=torch.int64, device=x.device)
+    age = (pos - j) % C                      # distance to the current token
+    valid = age <= pos
+    if var.window is not None:
+        valid &= age < var.window
+    scores = torch.where(valid, scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +358,7 @@ def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embeddings
+# Embeddings / head
 # ---------------------------------------------------------------------------
 
 def embed_defs(cfg: ModelConfig) -> dict:
@@ -304,3 +376,9 @@ def embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.scale_embedding:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
+
+
+def unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Hidden states (B, S, d) → f32 logits (B, S, V), softcapped."""
+    w = p["tok"].float().T if cfg.tie_embeddings else p["out"].float()
+    return _softcap(x.float() @ w, cfg.final_logit_softcap)

@@ -2,9 +2,10 @@
 initialisers.
 
 Port of ``repro/models/params.py`` (``ParamDef``, ``init``,
-``count_params``, ``param_bytes``).  A model's ``param_defs()`` is a nested
-dict with ``ParamDef`` leaves; ``init`` materialises it with draws from an
-explicit ``torch.Generator`` on the generator's device.  The logical axis
+``count_params``, ``param_bytes``, ``stack_layers``), plus ``zeros`` for
+the decode caches.  A model's ``param_defs()`` is a nested dict with
+``ParamDef`` leaves; ``init`` materialises it with draws from an explicit
+``torch.Generator`` on the generator's device.  The logical axis
 names are kept for the sharding rules, which come with the multi-device
 slice.
 """
@@ -96,3 +97,20 @@ def count_params(tree) -> int:
 
 def param_bytes(tree) -> int:
     return sum(math.prod(d.shape) * d.dtype.itemsize for d in leaves(tree))
+
+
+def stack_layers(n: int, layer_tree) -> dict:
+    """Prefix every ``ParamDef`` with a stacked layer axis of size n.  As
+    the reference's, the explicit ``fan_in`` is not carried, so a stacked
+    leaf's std comes from its non-layer input dims."""
+    return tree_map(lambda d: ParamDef(
+        (n, *d.shape), ("layer", *d.axes), dtype=d.dtype, init=d.init,
+        scale=d.scale), layer_tree)
+
+
+def zeros(tree, *, device: torch.device | str | None = None) -> dict:
+    """Zero tensors of a ``ParamDef`` tree on ``device`` (CUDA unless
+    ``device="cpu"``): a decode cache's initial value."""
+    dev = resolve_device(device)
+    return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype, device=dev),
+                    tree)

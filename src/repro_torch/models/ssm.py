@@ -1,12 +1,14 @@
 """Mamba2 — state-space duality (SSD) blocks [arXiv:2405.21060].
 
-Port of ``repro/models/ssm.py``, full-sequence forward: the chunked SSD
-algorithm.  Within a chunk the term is an attention-like masked product
-(the hand-written ``ssd_intra`` kernel when ``ssm.use_kernel`` and
-``n_groups == 1``, else the reference's einsum chain); across chunks a
-short loop over ``S/chunk`` steps carries the (H, N, P) state.  The decode
-cache (``return_cache=True``) and the single-step recurrence
-(``mamba_decode``) wait for ROADMAP queue 1 item 12.
+Port of ``repro/models/ssm.py``.  The full-sequence forward (training,
+prefill, features) is the chunked SSD algorithm: within a chunk the term
+is an attention-like masked product (the hand-written ``ssd_intra`` kernel
+when ``ssm.use_kernel`` and ``n_groups == 1``, else the reference's einsum
+chain); across chunks a short loop over ``S/chunk`` steps carries the
+(H, N, P) state, whose last value is the prefill's decode state
+(``return_cache=True``, no token replay).  Decode (``mamba_decode``) is
+the single-step recurrence on that state: ``h ← exp(ΔA)·h + (ΔB)⊗x``,
+``y = C·h + D·x``.
 
 Every three-operand product of the reference is contracted here in an
 order that never builds a (…, Q, H, N, P) tensor: at zamba2-2.7b's full
@@ -53,6 +55,19 @@ def mamba_defs(cfg: ModelConfig) -> dict:
         "conv_b": ParamDef((conv_ch,), (None,), dtype=dt, init="zeros"),
         "norm": ParamDef((H, Pd), ("heads", None), dtype=f32, init="ones"),
         "wo": ParamDef((H, Pd, d), ("heads", None, "embed"), dtype=dt),
+    }
+
+
+def ssm_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+    s = cfg.ssm
+    d_inner, H, Pd, G, N = _dims(cfg)
+    conv_ch = d_inner + 2 * G * N
+    return {
+        "state": ParamDef((batch, H, N, Pd), ("batch", "heads", None, None),
+                          dtype=torch.float32, init="zeros"),
+        "conv": ParamDef((batch, s.conv_kernel - 1, conv_ch),
+                         ("batch", None, None), dtype=cfg.param_dtype,
+                         init="zeros"),
     }
 
 
@@ -115,12 +130,12 @@ def _y_intra_plain(Cc, Bc, La, xc):
 
 
 def mamba_apply(p, cfg: ModelConfig, u: torch.Tensor,
-                return_cache: bool = False) -> torch.Tensor:
-    """Full-sequence SSD.  u: (B, S, d) → (B, S, d)."""
-    if return_cache:
-        raise NotImplementedError(
-            "mamba_apply(return_cache=True) (the prefill cache) is not "
-            "ported yet: ROADMAP queue 1 item 12")
+                return_cache: bool = False):
+    """Full-sequence SSD.  u: (B, S, d) → (B, S, d).
+
+    With ``return_cache`` also returns the decode cache {state, conv}: the
+    state after the last chunk and the last ``conv_kernel − 1`` positions'
+    pre-conv channels."""
     s_cfg = cfg.ssm
     d_inner, H, Pd, G, N = _dims(cfg)
     B_, S, _ = u.shape
@@ -131,8 +146,8 @@ def mamba_apply(p, cfg: ModelConfig, u: torch.Tensor,
     nc = S // Q
     hpg = H // G
 
-    xbc, z, dt = _proj_xbc(p, cfg, u)
-    xbc = _causal_conv(p, xbc, s_cfg.conv_kernel)
+    xbc_raw, z, dt = _proj_xbc(p, cfg, u)
+    xbc = _causal_conv(p, xbc_raw, s_cfg.conv_kernel)
     x, Bm, Cm = _split_xbc(cfg, xbc)
     dt = F.softplus(dt.float() + p["dt_bias"])                   # (B,S,H)
     A = -torch.exp(p["A_log"])                                   # (H,) < 0
@@ -178,10 +193,38 @@ def mamba_apply(p, cfg: ModelConfig, u: torch.Tensor,
     y = (y_intra + y_inter).reshape(B_, S, H, Pd)
     y = y + p["D"][None, None, :, None] * x.float()
     y = _gated_norm(p, y, z, cfg.norm_eps)
-    return torch.einsum("bshp,hpd->bsd", y.to(u.dtype), p["wo"])
+    out = torch.einsum("bshp,hpd->bsd", y.to(u.dtype), p["wo"])
+    if not return_cache:
+        return out
+    k = s_cfg.conv_kernel
+    return out, {"state": state,
+                 "conv": xbc_raw[:, S - (k - 1):, :].to(cfg.param_dtype)}
 
 
-def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, cache: dict):
-    """Single-token recurrent step (decode): not ported yet."""
-    raise NotImplementedError("mamba_decode is not ported yet: ROADMAP "
-                              "queue 1 item 12")
+def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, cache: dict
+                 ) -> tuple[torch.Tensor, dict]:
+    """Single-token recurrent step.  u: (B, 1, d); cache {state (B,H,N,P)
+    f32, conv (B, k−1, C)} → (out (B, 1, d), the new cache)."""
+    d_inner, H, Pd, G, N = _dims(cfg)
+    xbc, z, dt = _proj_xbc(p, cfg, u)                  # (B,1,·)
+    hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
+                     dim=1)                            # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", hist, p["conv_w"]) + p["conv_b"]
+    conv_out = F.silu(conv_out)[:, None, :]
+    new_conv = hist[:, 1:, :]
+
+    x, Bm, Cm = _split_xbc(cfg, conv_out)
+    dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]                 # (B,H)
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A[None, :])                                   # (B,H)
+    hpg = H // G
+    Bh = Bm[:, 0].repeat_interleave(hpg, dim=-2)       # (B,H,N)
+    Ch = Cm[:, 0].repeat_interleave(hpg, dim=-2)
+    xd = x[:, 0].float() * dt[..., None]               # (B,H,P)
+    state = cache["state"] * a[..., None, None] + \
+        torch.einsum("bhn,bhp->bhnp", Bh.float(), xd)
+    y = torch.einsum("bhn,bhnp->bhp", Ch.float(), state)
+    y = y + p["D"][None, :, None] * x[:, 0].float()
+    y = _gated_norm(p, y[:, None], z, cfg.norm_eps)
+    out = torch.einsum("bshp,hpd->bsd", y.to(u.dtype), p["wo"])
+    return out, {"state": state, "conv": new_conv}

@@ -59,7 +59,15 @@ def test_port_has_every_slice_module():
               "repro_torch.launch.wholebrain", "repro_torch.launch.serve",
               "repro_torch.launch.roofline_report",
               "repro_torch.configs.vgg16_ridge", "repro_torch.core.compat",
-              "repro_torch.core.bmor", "repro_torch.encoding.sharding"):
+              "repro_torch.core.bmor", "repro_torch.encoding.sharding",
+              "repro_torch.models.moe", "repro_torch.models.transformer",
+              "repro_torch.serving", "repro_torch.serving.sampler",
+              "repro_torch.serving.engine", "repro_torch.configs.qwen3_1_7b",
+              "repro_torch.configs.gemma_7b", "repro_torch.configs.gemma2_2b",
+              "repro_torch.configs.gemma3_12b",
+              "repro_torch.configs.phi35_moe",
+              "repro_torch.configs.grok1_314b",
+              "repro_torch.configs.llava_next_34b"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):

@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs nineteen phases, each of which
+nvcc into ``build/kernels/``, then runs twenty phases, each of which
 raises (exit code 1) on a failed check (``--only 14,16`` runs the build
-and just the listed phases, 6 and 12 to 19, and prints no result lines):
+and just the listed phases, 6 and 12 to 20, and prints no result lines):
 
 1. Environment: versions, TF32 switches (all off), card name and power
    limit, kernel build time (one nvcc per source, in parallel) and the
@@ -67,9 +67,12 @@ and just the listed phases, 6 and 12 to 19, and prints no result lines):
    (``ref.ssd_intra_split``), repeated launches bitwise equal and the
    non-finite rule.  Times of the kernel, the plain version, the nearest
    library call (flash: ``scaled_dot_product_attention``, backend named)
-   and the card's bound (bf16 flash and ssd_intra: the largest of the
-   tensor-core time of their bf16 term products, the exponentials at the
-   SFU rate, and the bytes; ssd_intra's f32-rate bound beside it).
+   and the card's bound (flash: the largest of the function's two
+   products, Q·Kᵀ and P·V, at the bf16 tensor-core rate, the
+   exponentials at the SFU rate and the bytes, k and v at n_kv heads,
+   with the bf16 design's four-product bound beside it; ssd_intra: its
+   kept bf16 term products, the exponentials and the bytes, with its
+   f32-rate bound beside it).
 8. The full-width, full-depth zamba2-2.7b forward (63 pattern slots,
    d=2,560) in f32 parameters, once with both kernel switches on and once
    with both off: max|Δh| ≤ 1e-3·max|h|.
@@ -243,6 +246,24 @@ and just the listed phases, 6 and 12 to 19, and prints no result lines):
     greedy tokens equal; in bf16 the count of equal tokens is printed.
     Each run prints its prefill seconds, decode tokens/s, peak device
     memory and launches.
+20. The audio family and training (``--only 20``), seamless-m4t-medium at
+    full width and depth (12 + 12 layers, d 1,024, vocab 256,206; random
+    bf16 weights).  (a) ``serve.main`` in this process with the flash
+    path at 512: batch 8 × 4,096 source frames, 32 tokens, 12
+    ``flash_attention`` launches (the encoder's, non-causal) in the
+    prefill, the first held against ``ref.mha_flash``.  (b) The feature
+    hook, ``hidden_states`` on 2 × (4,096 frames + 1,024 tokens): 36
+    launches, one of each use (encoder; decoder self-attention, causal;
+    cross-attention, non-causal with S ≠ T) held against
+    ``ref.mha_flash`` and timed beside the plain version, SDPA and the
+    bound.  (c) Kernel path against plain path in f32 at 2 + 2 layers:
+    the prefill logits and the features within 2e-4·max and 16 greedy
+    tokens equal.  (d) ``launch/train.py --arch seamless-m4t-medium
+    --steps 8 --batch 8 --seq 1024`` in this process: every loss finite,
+    no kernel launched, and the trained parameters lower the loss of the
+    driver's first batch (the driver's last-against-first loss is
+    printed: on fresh uniform tokens it moves less than the spread
+    between batches at this size); step times and peak device memory.
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -320,8 +341,8 @@ WB_SMALL = dict(n=4_000, p=2_048, t=6_728, chunk_rows=1_024, t_block=2_048)
 WB_WINDOW = (10_000, 30_000)
 # Phase 14: MOR pays one RidgeCV per target, so the whole_brain_mor cell's
 # 2,000 targets are cut to the first 128 (256 until phase 18 needed the
-# time); the taskwise loop is held bitwise against mor_fit on the first
-# 64 of them.
+# time); the taskwise loop is held bitwise against mor_fit on the first 64
+# of them.
 MOR_TARGETS, MOR_TASKWISE = 128, 64
 # Phase 15: banded ridge on the parcels cell, the paper's VGG16-FC2 at
 # 4 TR lags (bands of 4,096), 3 folds; 2 band candidates instead of the
@@ -387,6 +408,25 @@ LM_CUT = {"phi3.5-moe-42b-a6.6b": 4, "llava-next-34b": 8}
 LM_CUT_PROMPT, LM_CUT_GEN = 2048, 16
 LM_F32 = {"gemma2-2b": 8192, "zamba2-2.7b": 1024}
 LM_F32_REPEATS, LM_F32_GEN, LM_F32_TOL = 2, 16, 2e-4
+# Phase 20: the audio family and training, seamless-m4t-medium at its
+# published widths and depth (12 + 12 layers, d 1,024, 16 heads of 64,
+# vocab 256,206; random bf16 weights).  (a) serve --arch in process, the
+# flash path at LM_FLASH: a wave of AUDIO_BATCH × AUDIO_FRAMES source
+# frames (the reference's decode shapes' CROSS_LEN), AUDIO_GEN tokens;
+# (b) the feature hook on AUDIO_FEAT_B × (AUDIO_FRAMES frames +
+# AUDIO_TOKENS tokens), which runs the flash kernel as the encoder's
+# (non-causal, RoPE), the decoder's self (causal) and the cross-attention
+# (non-causal, S ≠ T); (c) kernel path against plain path in f32 at
+# AUDIO_F32_LAYERS + AUDIO_F32_LAYERS layers; (d) launch/train.py at
+# full width and depth: every loss finite, and the trained parameters
+# lower the loss of the first batch the driver trained on; no checkpoint
+# at this size.
+AUDIO = "seamless-m4t-medium"
+AUDIO_BATCH, AUDIO_FRAMES, AUDIO_GEN = 8, 4096, 32
+AUDIO_FEAT_B, AUDIO_TOKENS = 2, 1024
+AUDIO_F32_LAYERS = 2
+AUDIO_TRAIN = ["--arch", AUDIO, "--steps", "8", "--batch", "8", "--seq",
+               "1024", "--device", "cuda"]
 
 
 def rows_before_split(n_fit: int) -> int:
@@ -1455,10 +1495,10 @@ def phase_backbone_kernels_small() -> None:
         raise RuntimeError("ssd_intra accepted mismatched shapes")
 
 
-def _sdpa(q, k, v):
+def _sdpa(q, k, v, causal: bool = True):
     """(name, fn) of the fastest SDPA backend that takes the model layout
-    (B, S, H, K) as (B, H, S, K) views, causal, with q pre-scaled (scale
-    1)."""
+    (B, S, H, K) as (B, H, S, K) views, causal or not, with q pre-scaled
+    (scale 1)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1471,7 +1511,7 @@ def _sdpa(q, k, v):
         def fn(backend=backend):
             with sdpa_kernel([backend]):
                 return F.scaled_dot_product_attention(
-                    *args, is_causal=True, scale=1.0).transpose(1, 2)
+                    *args, is_causal=causal, scale=1.0).transpose(1, 2)
         try:
             fn()
             torch.cuda.synchronize()
@@ -1524,21 +1564,21 @@ def phase_backbone_kernels_full(card: str, reps: int) -> dict:
     contig_ms = time_ms(lambda: attention.flash_attention(qf, kf, vf), reps)
     plain_ms = time_ms(lambda: ref.mha_flash(q, k, v, n_kv), reps)
     lib_ms = time_ms(lib_fn, reps)
-    # Bound of the bf16 design, the largest of three: the tensor cores run
-    # Q·Kᵀ once and P·V three times (P split exactly into three bf16 terms,
-    # each product exact in f32) at the bf16 rate; one exponential per
-    # visible pair at the SFU rate, 16 a clock per SM at the clock the bf16
-    # peak implies (4,096 FLOP a clock per SM), i.e. peak / 256 a second;
-    # the bytes.  Beside it, the earlier bound with P·V at the f32 rate.
+    # The bound (_flash_bound_ms): the function's two products per visible
+    # pair at the bf16 rate, one exponential per pair at the SFU rate, 16
+    # a clock per SM at the clock the bf16 peak implies (4,096 FLOP a
+    # clock per SM), i.e. peak / 256 a second; the bytes.  Beside it, the
+    # bf16 design's own bound (Q·Kᵀ once and P·V three times: P split
+    # exactly into three bf16 terms, each product exact in f32) and the
+    # CUDA-core design's, with P·V at the f32 rate.
     pairs = S * (S + 1) / 2                        # causal (query, key) pairs
     half = 2.0 * bh * K * pairs                    # FLOPs of each product
-    f32_peak, bw = peaks(card)
-    t_tc = 4 * half / bf16_peak(card)
+    f32_peak = peaks(card)[0]
+    bound, by, design = _flash_bound_ms(B, S, H, n_kv, K, None, None, card)
+    t_tc = 2 * half / bf16_peak(card)
     t_exp = bh * pairs / (bf16_peak(card) / 256)
+    t_bytes = 2 * (bh + B * n_kv) * S * K * q.element_size() / peaks(card)[1]
     t_f32_pv = half / bf16_peak(card) + half / f32_peak
-    t_bytes = 4 * bh * S * K * q.element_size() / bw   # q, k, v; o written
-    bound = max(t_tc, t_exp, t_bytes) * 1e3
-    by = "operations" if max(t_tc, t_exp) >= t_bytes else "bytes"
     print(f"[backbone-kernels] flash_attention (mha_flash) B={B} S=T={S} "
           f"H={H} n_kv={n_kv} K={K} causal bf16, strided q/k/v: max abs err "
           f"{err:.3e}, (BH,S,K) contiguous {err_f:.3e} (rtol "
@@ -1548,10 +1588,12 @@ def phase_backbone_kernels_full(card: str, reps: int) -> dict:
           f"contiguous (BH,S,K) {contig_ms:.3f} ms), plain {plain_ms:.3f} "
           f"ms, library {lib_ms:.3f} ms (SDPA {lib_name}, max|SDPA-kernel| "
           f"{lib_err:.3e}), bound {bound:.3f} ms ({by}: tensor cores "
-          f"{t_tc * 1e3:.3f} ms for Q·Kᵀ + 3 split P·V at the bf16 rate, "
+          f"{t_tc * 1e3:.3f} ms for Q·Kᵀ and P·V at the bf16 rate, "
           f"exponentials {t_exp * 1e3:.3f} ms at the SFU rate, bytes "
-          f"{t_bytes * 1e3:.3f} ms; with P·V at the f32 rate, the CUDA-core "
-          f"design's bound, {t_f32_pv * 1e3:.3f} ms) [{card}]")
+          f"{t_bytes * 1e3:.3f} ms); the bf16 design's bound (P·V as 3 "
+          f"split products) {design:.3f} ms, the CUDA-core design's (P·V at "
+          f"the f32 rate) {max(t_f32_pv, t_exp, t_bytes) * 1e3:.3f} ms "
+          f"[{card}]")
     rec["flash_attention"] = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bound,
                               "bound_by": by, "max_abs_err": err}
@@ -3990,14 +4032,14 @@ def _holding_lm(held: dict, keep: dict):
         out = flash(q, k, v, n_kv, causal=causal, window=window,
                     softcap=softcap)
         key = (f"mha_flash q={tuple(q.shape)} k={tuple(k.shape)} "
-               f"window={window} softcap={softcap} "
+               f"causal={causal} window={window} softcap={softcap} "
                f"{str(q.dtype).removeprefix('torch.')}")
         if key not in held:
             held[key] = _close(key, out, ref.mha_flash(
                 q, k, v, n_kv, causal=causal, window=window,
                 softcap=softcap).contiguous())
             keep[key] = (q.clone(), k.clone(), v.clone(), n_kv, window,
-                         softcap)
+                         softcap, causal)
         return out
 
     def hold_ssd(cb, la, x):
@@ -4039,18 +4081,30 @@ def _serve_in_process(tag: str, argv: list[str], card: str, patches
     return out.getvalue(), launches, wall, peak
 
 
-def _flash_bound_ms(b, s, h, kd, window, softcap, card) -> tuple[float, str]:
-    """The bf16 flash design's bound (phase 7's three terms) over the
-    causal pairs a window leaves visible; a softcap adds one tanh per pair
-    at the SFU rate."""
-    w = s if window is None else min(window, s)
-    pairs = w * (w + 1) / 2 + (s - w) * w
-    half = 2.0 * b * h * kd * pairs
-    t_tc = 4 * half / bf16_peak(card)
+def _flash_bound_ms(b, s, h, n_kv, kd, window, softcap, card, t=None,
+                    causal=True) -> tuple[float, str, float]:
+    """The least time the card could take for one attention call, the
+    largest of three: the function's two products per visible query-key
+    pair (Q·Kᵀ and P·V) at the bf16 tensor-core rate, one exponential per
+    pair (and a tanh with a softcap) at the SFU rate (bf16 peak / 256, as
+    phase 7 takes it), and the bytes (q and the output at H heads and S
+    rows, k and v at n_kv heads and T rows, bf16, each moved once).
+    Visible pairs: causal, those a window leaves; else all S·T, T keys
+    defaulting to S.  → (bound ms, "operations" or "bytes", the bf16
+    design's bound ms: four products, P·V split into three bf16 terms)."""
+    t = s if t is None else t
+    if causal:
+        w = s if window is None else min(window, s)
+        pairs = w * (w + 1) / 2 + (s - w) * w
+    else:
+        pairs = s * t
+    half = 2.0 * b * h * kd * pairs                # FLOPs of each product
+    t_tc = 2 * half / bf16_peak(card)
     t_sfu = (2 if softcap else 1) * b * h * pairs / (bf16_peak(card) / 256)
-    t_bytes = 4 * b * h * s * kd * 2 / peaks(card)[1]
+    t_bytes = 2 * (b * h * s + b * n_kv * t) * kd * 2 / peaks(card)[1]
     by = "operations" if max(t_tc, t_sfu) >= t_bytes else "bytes"
-    return max(t_tc, t_sfu, t_bytes) * 1e3, by
+    design = max(4 * half / bf16_peak(card), t_sfu, t_bytes)
+    return max(t_tc, t_sfu, t_bytes) * 1e3, by, design * 1e3
 
 
 def _greedy(model, params, batch, start: int, steps: int):
@@ -4171,18 +4225,20 @@ def phase_lm_serving(card: str) -> dict:
           cfg.n_layers == 26, f"gemma2 engine launches {launches}")
     add(launches)
     # The held local and global launches, timed beside the plain version.
-    for key, (q, k, v, n_kv, window, softcap) in keep.items():
+    for key, (q, k, v, n_kv, window, softcap, _) in keep.items():
         ms = time_ms(lambda: attention.mha_flash(
             q, k, v, n_kv, window=window, softcap=softcap), 3)
         plain_ms = time_ms(lambda: ref.mha_flash(
             q, k, v, n_kv, window=window, softcap=softcap), 1)
-        bound, by = _flash_bound_ms(q.shape[0], q.shape[1], q.shape[2],
-                                    q.shape[3], window, softcap, card)
+        bound, by, design = _flash_bound_ms(
+            q.shape[0], q.shape[1], q.shape[2], n_kv, q.shape[3], window,
+            softcap, card)
         print(f"[lm] flash {key}: max abs err {held[key]:.3e} (rtol "
               f"{FLASH_TOL['bfloat16']['rtol']:g}/atol "
               f"{FLASH_TOL['bfloat16']['atol']:g}); kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, library none (SDPA takes no "
-              f"softcap), bound {bound:.3f} ms ({by}) [{card}]")
+              f"softcap), bound {bound:.3f} ms ({by}; the bf16 design's "
+              f"{design:.3f} ms) [{card}]")
     check(len(keep) == 2, f"gemma2: {len(keep)} flash variants held, want "
           f"a local and a global one")
     keep.clear()
@@ -4280,18 +4336,289 @@ def phase_lm_serving(card: str) -> dict:
     return total
 
 
+def _flash_on(threshold: int):
+    """A ``_patched`` triple: ``configs.for_device`` with the flash path
+    reachable at ``threshold`` (flash_threshold = flash_block), so a
+    driver that builds its config through it (``serve --arch``) runs the
+    flash kernel on the card."""
+    import dataclasses
+    from repro_torch import configs
+
+    orig = configs.for_device
+
+    def for_device(cfg, device):
+        return orig(dataclasses.replace(cfg, flash_threshold=threshold,
+                                        flash_block=threshold), device)
+    return (configs, "for_device", for_device)
+
+
+def phase_audio(card: str) -> dict:
+    """Phase 20: the audio family (EncDecLM) served, as a feature hook and
+    against its plain path, then trained through ``launch/train.py``, all
+    at seamless-m4t-medium's full width and depth.  → flash launches of
+    (a) and (b) (those of (c) are checks)."""
+    import dataclasses
+    import io
+    import math
+    import re
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import attention, ref
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.models.params import count_params, param_bytes
+
+    total = {"flash_attention": 0}
+    held, keep = {}, {}
+    patches = _holding_lm(held, keep)
+    base = configs.get_config(AUDIO)
+    L, L_enc = base.n_layers, base.n_encoder_layers
+    n_par = count_params(build_model(base).param_defs())
+
+    # (a) serve --arch at full width and depth, flash on at LM_FLASH.
+    argv = ["--arch", AUDIO, "--batch", str(AUDIO_BATCH), "--prompt-len",
+            str(AUDIO_FRAMES), "--gen", str(AUDIO_GEN), "--device", "cuda"]
+    out, launches, wall, peak = _serve_in_process(
+        AUDIO, argv, card, patches + [_flash_on(LM_FLASH)])
+    pre = float(re.search(r"prefill: ([\d.]+)s", out).group(1))
+    tps = float(re.search(r"\(([\d.]+) tok/s\)", out).group(1))
+    toks = json.loads(re.search(r"sample tokens: (\[.*\])", out).group(1))
+    check(launches == dict({k: 0 for k in launches},
+                           flash_attention=L_enc) and L_enc == 12,
+          f"{AUDIO} serve launches {launches}")
+    check(f"logits ({AUDIO_BATCH}, 1, {base.vocab})" in out
+          and len(toks) == 12 and all(0 <= t < base.vocab for t in toks),
+          f"{AUDIO} serve output")
+    print(f"[audio] {AUDIO} full depth ({n_par / 1e9:.3f} B parameters, "
+          f"{param_bytes(build_model(base).param_defs()) / 1e9:.2f} GB "
+          f"bf16), B={AUDIO_BATCH} × {AUDIO_FRAMES} frames, {AUDIO_GEN} "
+          f"tokens: prefill {pre:.2f} s (the driver's line: the encoder, "
+          f"the cross K/V of {L} layers and the first token), decode "
+          f"{tps:.1f} tok/s, peak {peak:.2f} GiB, flash "
+          f"{launches['flash_attention']} per prefill [{card}]")
+    total["flash_attention"] += launches["flash_attention"]
+    keep.clear()
+    free()
+
+    # (b) The feature hook: the kernel's three uses at model shapes, timed
+    # on a warm second call, then once more with each use held.
+    cfg = _lm_cfg(AUDIO)
+    model = build_model(cfg)
+    g = torch.Generator("cuda").manual_seed(23)
+    params = model.init(g, device="cuda")
+    batch = {"src_embeds": torch.randn(
+                 AUDIO_FEAT_B, AUDIO_FRAMES, cfg.d_model, generator=g,
+                 device="cuda").to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab,
+                                     (AUDIO_FEAT_B, AUDIO_TOKENS),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)}
+    model.hidden_states(params, batch)                 # warm-up
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = model.hidden_states(params, batch)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with _patched(*patches):
+        model.hidden_states(params, batch)
+    check(tuple(h.shape) == (AUDIO_FEAT_B, AUDIO_TOKENS, cfg.d_model)
+          and bool(torch.isfinite(h).all()), f"{AUDIO} features")
+    check(launches == dict({k: 0 for k in launches},
+                           flash_attention=L_enc + 2 * L),
+          f"{AUDIO} feature hook launches {launches}")
+    print(f"[audio] feature hook: {AUDIO_FEAT_B} × ({AUDIO_FRAMES} frames + "
+          f"{AUDIO_TOKENS} tokens) → features {tuple(h.shape)} in "
+          f"{feat_s:.3f} s ({AUDIO_FEAT_B * AUDIO_TOKENS / feat_s:.0f} "
+          f"tokens/s), peak {peak:.2f} GiB, "
+          f"launches {launches} [{card}]")
+    total["flash_attention"] += launches["flash_attention"]
+    del h
+    kinds = {}
+    for key, (q, k, v, n_kv, window, softcap, causal) in keep.items():
+        kind = ("encoder" if not causal and q.shape[1] == k.shape[1]
+                else "cross" if not causal else "decoder self")
+        kinds[kind] = key
+        ms = time_ms(lambda: attention.mha_flash(
+            q, k, v, n_kv, causal=causal), 3)
+        plain_ms = time_ms(lambda: ref.mha_flash(
+            q, k, v, n_kv, causal=causal), 1)
+        lib_name, lib_fn = _sdpa(q, k, v, causal=causal)
+        lib_ms = time_ms(lib_fn, 3)
+        bound, by, design = _flash_bound_ms(
+            q.shape[0], q.shape[1], q.shape[2], n_kv, q.shape[3], None, None,
+            card, t=k.shape[1], causal=causal)
+        print(f"[audio] flash, {kind}: {key}: max abs err {held[key]:.3e} "
+              f"(rtol {FLASH_TOL['bfloat16']['rtol']:g}/atol "
+              f"{FLASH_TOL['bfloat16']['atol']:g}); kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, SDPA ({lib_name}) {lib_ms:.3f} ms, "
+              f"bound {bound:.3f} ms ({by}; {100 * bound / ms:.0f}% of the "
+              f"kernel's time, {100 * bound / lib_ms:.0f}% of SDPA's; the "
+              f"bf16 design's {design:.3f} ms) [{card}]")
+    check(sorted(kinds) == ["cross", "decoder self", "encoder"],
+          f"{AUDIO}: flash uses held {sorted(kinds)}")
+    keep.clear()
+    del params, model, batch
+    free()
+
+    # (c) Kernel path against plain path in f32, 2 + 2 layers: the prefill
+    # (the encoder's launches) and greedy decode, then the feature hook.
+    kern = _lm_cfg(AUDIO, param_dtype=torch.float32,
+                   n_layers=AUDIO_F32_LAYERS,
+                   n_encoder_layers=AUDIO_F32_LAYERS)
+    plain = configs.for_device(kern, "cpu")
+    g = torch.Generator("cuda").manual_seed(24)
+    params = build_model(kern).init(g, device="cuda")
+    batch = {"src_embeds": torch.randn(1, AUDIO_FRAMES, kern.d_model,
+                                       generator=g, device="cuda"),
+             "tokens": torch.randint(0, kern.vocab, (1, AUDIO_TOKENS),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)}
+    first = dict(batch, tokens=batch["tokens"][:, :1],
+                 decode_len=LM_F32_GEN + 1)
+    _reset_counters()
+    lk, tk = _greedy(build_model(kern), params, first, 1, LM_F32_GEN)
+    hk = build_model(kern).hidden_states(params, batch)
+    launches = _counters()
+    lp, tp = _greedy(build_model(plain), params, first, 1, LM_F32_GEN)
+    hp = build_model(plain).hidden_states(params, batch)
+    check(_counters() == launches, f"{AUDIO}: the plain path launched a "
+          f"kernel")
+    # The prefill's encoder, then the hook's encoder, self and cross.
+    check(launches["flash_attention"] == 4 * AUDIO_F32_LAYERS,
+          f"{AUDIO} f32 kernel path launches {launches}")
+    err, scale = (lk - lp).abs().max().item(), lp.abs().max().item()
+    herr, hscale = (hk - hp).abs().max().item(), hp.abs().max().item()
+    same = int((tk == tp).sum())
+    print(f"[audio] {AUDIO} {AUDIO_F32_LAYERS} + {AUDIO_F32_LAYERS} layers, "
+          f"f32, 1 × {AUDIO_FRAMES} frames: kernel path (launches "
+          f"{launches}) against the plain path: prefill logits max err "
+          f"{err:.3e} of max|logits| {scale:.4e}; features (+ "
+          f"{AUDIO_TOKENS} tokens) max err {herr:.3e} of {hscale:.4e}; "
+          f"{same} of {LM_F32_GEN} greedy tokens equal [{card}]")
+    check(err <= LM_F32_TOL * scale, f"{AUDIO} f32 logits {err:.3e} > "
+          f"{LM_F32_TOL:g}·{scale:.3e}")
+    check(herr <= LM_F32_TOL * hscale, f"{AUDIO} f32 features {herr:.3e} "
+          f"> {LM_F32_TOL:g}·{hscale:.3e}")
+    check(same == LM_F32_GEN, f"{AUDIO} f32 greedy tokens differ")
+    del params, batch, first, hk, hp
+    free()
+
+    # (d) Training through launch/train.py, each step timed on the card
+    # and the last step's parameters kept; the device memory of each
+    # AdamW update (held when it starts, its own peak) apart from the
+    # peak of the forward and backward before it.
+    step_s, trained, mem = [], {}, {"held": 0, "upd": 0, "fwd_bwd": 0}
+    build = steps.build_train_step
+    update = steps.adamw_update
+
+    def measured_update(*args, **kwargs):
+        torch.cuda.synchronize()
+        mem["fwd_bwd"] = max(mem["fwd_bwd"], torch.cuda.max_memory_allocated())
+        mem["held"] = max(mem["held"], torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        res = update(*args, **kwargs)
+        torch.cuda.synchronize()
+        mem["upd"] = max(mem["upd"], torch.cuda.max_memory_allocated())
+        return res
+
+    def timed_build(*args, **kwargs):
+        bundle = build(*args, **kwargs)
+
+        def fn(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = bundle.fn(*a)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            trained["params"] = res[0]
+            return res
+        return dataclasses.replace(bundle, fn=fn)
+
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _patched((steps, "build_train_step", timed_build),
+                  (steps, "adamw_update", measured_update)), \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        train.main(AUDIO_TRAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _counters()
+    peak = max(mem["fwd_bwd"], mem["upd"],
+               torch.cuda.max_memory_allocated()) / 2**30
+    for line in out.getvalue().splitlines():
+        print(f"[audio]   train: {line}")
+    losses = [float(m) for m in re.findall(r"loss=(\S+)", out.getvalue())]
+    n_steps = int(AUDIO_TRAIN[AUDIO_TRAIN.index("--steps") + 1])
+    bsz = int(AUDIO_TRAIN[AUDIO_TRAIN.index("--batch") + 1])
+    seq = int(AUDIO_TRAIN[AUDIO_TRAIN.index("--seq") + 1])
+    check(len(losses) == n_steps == len(step_s)
+          and all(math.isfinite(x) for x in losses)
+          and out.getvalue().rstrip().endswith("done"),
+          f"{AUDIO} train: losses {losses}")
+    check(not any(launches.values()), f"{AUDIO} train launched kernels "
+          f"{launches} (training runs the plain paths)")
+    rest = sorted(step_s[1:])
+    med = rest[len(rest) // 2]
+    print(f"[audio] train {' '.join(AUDIO_TRAIN)}: {wall:.2f} s in process "
+          f"(parameter draw included); step 0 {step_s[0]:.3f} s, steps "
+          f"1-{n_steps - 1} median {med:.3f} s (min {rest[0]:.3f}, max "
+          f"{rest[-1]:.3f}), {bsz * seq / med:.0f} tokens/s ({bsz} × "
+          f"({seq // 2} frames + {seq - seq // 2} tokens)); loss "
+          f"{losses[0]:.4f} → {losses[-1]:.4f} on fresh batches; peak "
+          f"{peak:.2f} GiB: forward and backward {mem['fwd_bwd'] / 2**30:.2f}"
+          f", the in-place AdamW update {mem['upd'] / 2**30:.2f} of which "
+          f"{mem['held'] / 2**30:.2f} held when it starts [{card}]")
+    # The gate: the trained parameters lower the loss of the first batch
+    # the driver trained on (its initial parameters and batch redrawn from
+    # the driver's seeds).  The driver's last-against-first comparison
+    # (the reference's smoke-size gate) is printed above, not gated: each
+    # step draws fresh uniform tokens, so the only learnable part is the
+    # loss above log(vocab) that the random logits add, and 8 steps at lr
+    # 3e-4 remove less of it than the spread between batches.
+    cfg_t = configs.get_config(AUDIO)
+    first_batch = TokenStream(cfg_t, bsz, seq, device="cuda").batch_at(0)
+    model_t = build_model(cfg_t)
+    with torch.no_grad():
+        before = float(model_t.loss(model_t.init(
+            torch.Generator("cuda").manual_seed(0), device="cuda"),
+            first_batch))
+        after = float(model_t.loss(trained["params"], first_batch))
+    print(f"[audio] train: the first batch's loss {before:.4f} (the "
+          f"driver's step 0: {losses[0]:.4f}) → {after:.4f} with the "
+          f"trained parameters [{card}]")
+    check(abs(before - losses[0]) < 1e-3, f"{AUDIO} train: the redrawn "
+          f"first batch's loss {before:.4f} is not the driver's "
+          f"{losses[0]:.4f}")
+    check(after < before, f"{AUDIO} train: the trained parameters do not "
+          f"lower the first batch's loss ({before:.4f} → {after:.4f})")
+    del trained, model_t, first_batch
+    free()
+    print(f"[audio] held launches: " + "; ".join(
+        f"{k}: {v:.3e}" for k, v in held.items()) + f" [{card}]")
+    print(f"[audio] phase 20 launches {total} [{card}]")
+    return total
+
+
 def _selected(argv: list[str]) -> set[int] | None:
     """``--only 14,16`` runs phase 1 and the listed independent phases
-    (6 and 12 to 19) and prints no result lines: a quick check while
+    (6 and 12 to 20) and prints no result lines: a quick check while
     working on them.  With no arguments every phase runs."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
-                         "(N in 6, 12..19)")
+                         "(N in 6, 12..20)")
     only = {int(v) for v in argv[1].split(",")}
-    if not only <= {6, 12, 13, 14, 15, 16, 17, 18, 19}:
-        raise SystemExit(f"--only takes phases 6 and 12 to 19, got "
+    if not only <= {6, 12, 13, 14, 15, 16, 17, 18, 19, 20}:
+        raise SystemExit(f"--only takes phases 6 and 12 to 20, got "
                          f"{sorted(only)}")
     return only
 
@@ -4316,7 +4643,7 @@ def main(argv: list[str]) -> int:
                          (14, phase_mor), (15, phase_banded),
                          (16, phase_serving), (17, phase_drivers),
                          (18, phase_multidevice),
-                         (19, phase_lm_serving)):
+                         (19, phase_lm_serving), (20, phase_audio)):
             if n in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -4377,6 +4704,10 @@ def main(argv: list[str]) -> int:
     for k, v in phase_lm_serving(card).items():
         launches[k] += v
     print(f"[done] phase 19 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, v in phase_audio(card).items():
+        launches[k] += v
+    print(f"[done] phase 20 passed in {time.perf_counter() - t0:.1f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("split_engine.cu",
                            "src/repro/kernels/gram.py:158"),

@@ -16,9 +16,13 @@ back as their uint16 bit patterns (numpy has no bfloat16, and the port
 does not depend on ``ml_dtypes``); ``device.host_view``/``as_tensor`` view
 them as ``torch.bfloat16``.
 
+``restore`` reads a checkpoint back into the structure of a template
+tree (the training driver's ``{"params", "opt"}`` state) on a device.
+
 Errors are typed: a missing/corrupt manifest, a leaf recorded in the
-manifest whose ``.npy`` is gone, or a requested leaf the manifest never
-recorded all raise ``CheckpointError`` (a ``ValueError``).
+manifest whose ``.npy`` is gone, a requested leaf the manifest never
+recorded, or a stored shape that is not the template's all raise
+``CheckpointError`` (a ``ValueError``).
 """
 from __future__ import annotations
 
@@ -32,11 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch.data.store import _dtype_name, _to_storage
+from repro_torch.device import host_view, resolve_device
 
 
 class CheckpointError(ValueError):
     """Checkpoint inconsistency: missing/corrupt manifest, missing leaf
-    file, or a leaf absent from the manifest."""
+    file, a leaf absent from the manifest, or a shape mismatch on
+    restore."""
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -173,6 +179,46 @@ def load(ckpt_dir: str, step: int) -> dict[str, np.ndarray]:
             for key, meta in manifest["leaves"].items()}
 
 
+def restore(ckpt_dir: str, step: int, like: Any, *,
+            device: torch.device | str | None = None) -> Any:
+    """Restore into the structure of ``like`` (a nested dict of tensors or
+    arrays, e.g. a ``{"params", "opt"}`` train state): every leaf ``like``
+    has must be stored with ``like``'s shape, and comes back as a tensor
+    of its stored dtype on ``device`` (CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    src = os.path.join(ckpt_dir, f"step_{step}")
+    manifest = _read_manifest(src)
+    flat_like = _flatten(like)
+    missing = sorted(set(flat_like) - set(manifest["leaves"]))
+    if missing:
+        raise CheckpointError(
+            f"checkpoint {src} is missing {len(missing)} leave(s) that the "
+            f"restore template requires: {missing[:5]}"
+            + (" ..." if len(missing) > 5 else ""))
+    restored = {}
+    for key, ref in flat_like.items():
+        meta = manifest["leaves"][key]
+        arr = _load_leaf(src, key, meta)
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise CheckpointError(
+                f"leaf {key!r}: stored shape {tuple(arr.shape)} != template "
+                f"shape {tuple(ref.shape)}")
+        t = host_view(arr) if meta["dtype"] == "bfloat16" else \
+            torch.from_numpy(arr)
+        restored[key] = t.to(dev)
+    return _unflatten(like, restored)
+
+
+def _unflatten(like: Any, flat: dict[str, Any], prefix: str = "") -> Any:
+    """``like``'s nested dicts with the leaves of ``flat`` (the inverse of
+    ``_flatten``)."""
+    if not isinstance(like, dict):
+        return flat[prefix]
+    return {key: _unflatten(like[key], flat,
+                            f"{prefix}/{key}" if prefix else str(key))
+            for key in like}
+
+
 def latest_step(ckpt_dir: str) -> int | None:
     if not os.path.isdir(ckpt_dir):
         return None
@@ -182,4 +228,4 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 __all__ = ["CheckpointError", "atomic_replace_dir", "latest_step", "load",
-           "load_leaf", "save"]
+           "load_leaf", "restore", "save"]

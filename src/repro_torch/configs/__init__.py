@@ -1,10 +1,9 @@
 """Architecture configs (``get_config(arch)``) and the smoke reduction.
 
 Port of ``repro/configs/__init__.py``.  ``ARCH_IDS`` lists every
-architecture of the reference; the port carries the configs of the
-families it runs (``dense``/``moe``/``vlm`` through ``DecoderLM``,
-``ssm``/``hybrid`` through ``HybridLM``): every arch but
-``seamless-m4t-medium``, whose ``EncDecLM`` is ROADMAP queue 1 item 12.
+architecture of the reference, and the port carries each one's config
+(``dense``/``moe``/``vlm`` run through ``DecoderLM``, ``ssm``/``hybrid``
+through ``HybridLM``, ``audio`` through ``EncDecLM``).
 ``smoke(cfg)`` derives the reduced same-family variant of the CPU tests
 (≤2 pattern slots, d_model 256).  ``for_device(cfg, device)`` turns the
 hand-written kernel tier on iff the device is CUDA, the rule
@@ -41,6 +40,7 @@ _MODULES = {
     "gemma-7b": "gemma_7b",
     "grok-1-314b": "grok1_314b",
     "gemma3-12b": "gemma3_12b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "gemma2-2b": "gemma2_2b",
 }
 
@@ -48,10 +48,6 @@ _MODULES = {
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: the audio family's EncDecLM is "
-            f"ROADMAP queue 1 item 12")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

@@ -5,6 +5,12 @@ tensor goes to the plain version (``kernels.ref``), a CUDA tensor to the
 hand-written kernel (``kernels.gram``, ``kernels.ridge_solve``,
 ``kernels.pearsonr``, ``kernels.attention``, ``kernels.ssd``), which
 launches or raises.
+
+The model kernels (``mha_flash``, ``ssd_intra``) have no backward: their
+outputs carry no autograd history.  So they refuse, on every device, an
+operand that requires grad while grad mode is on, rather than drop its
+gradient; the reference cannot differentiate through its Pallas kernels
+either.  Training runs the models with the kernel switches off.
 """
 from __future__ import annotations
 
@@ -91,10 +97,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       softcap=softcap)
 
 
+def _no_grad_through(name: str, *operands: torch.Tensor) -> None:
+    """Raise if autograd would need a backward of kernel ``name``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name} has no backward: an operand requires grad under grad "
+            f"mode, and its gradient would be lost; train with the kernel "
+            f"switches off (flash_kernel=False, ssm.use_kernel=False)")
+
+
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_kv: int,
               *, causal: bool = True, window: int | None = None,
               softcap: float | None = None) -> torch.Tensor:
     """Model-layout attention: q (B,S,H,K), GQA k/v (B,T,N,K) → (B,S,H,K)."""
+    _no_grad_through("mha_flash", q, k, v)
     if q.device.type == "cpu":
         return _ref.mha_flash(q, k, v, n_kv, causal=causal, window=window,
                               softcap=softcap)
@@ -105,6 +121,7 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_kv: int,
 def ssd_intra(cb: torch.Tensor, la: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """Mamba2 SSD within-chunk term.  (N,Q,Q), (N,Q,H), (N,Q,H,P) → f32."""
+    _no_grad_through("ssd_intra", cb, la, x)
     if x.device.type == "cpu":
         return _ref.ssd_intra(cb, la, x)
     return _ssd.ssd_intra(cb, la, x)

@@ -26,9 +26,10 @@ term ``ssd_intra`` (the kernel tier is on iff the device is CUDA:
 ``EncoderConfig.use_pallas=None`` for the fit, ``configs.for_device`` for
 the backbone).  ``--solver bmor|bmor_dual`` needs a process group (one
 rank is enough), and ``--target-shards`` at most the world's ranks.
-Every architecture but ``seamless-m4t-medium`` (ROADMAP queue 1 item 12)
-gives its final hidden states as features: a ``vlm`` batch carries the
-vision stub's prefix rows as well, as in the reference.
+Every architecture gives its final hidden states as features: a ``vlm``
+batch carries the vision stub's prefix rows as well, and for the audio
+arch (``seamless-m4t-medium``) they are the decoder's, one row per
+target token of a batch with as many source frames, as in the reference.
 """
 from __future__ import annotations
 

@@ -15,7 +15,11 @@ builds the arch's model with random weights (``init`` from a seeded
 ``torch.Generator``), prefills a random batch and decodes ``--gen``
 greedy tokens; on CUDA the hand-written kernels run where the model's
 switches reach them (``configs.for_device``).  The audio arch
-(``seamless-m4t-medium``, ``EncDecLM``) is ROADMAP queue 1 item 12.
+(``seamless-m4t-medium``, ``EncDecLM``) prefills ``--prompt-len`` source
+frames and one token, and decodes from position 1, as the reference
+does; as there, its self cache then holds one position (the prefill
+batch has one token and no ``decode_len``), so every decoded token
+attends to itself alone in self-attention.
 
 Encoder mode (materialise → fit → save → serve loop)::
 
@@ -366,7 +370,7 @@ def _run_llm_mode(args, dev) -> None:
     print(f"prefill: {clock()-t0:.2f}s  logits {tuple(logits.shape)}")
 
     tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
-    start_pos = args.prompt_len
+    start_pos = args.prompt_len if cfg.family != "audio" else 1
     out_tokens = [tok]
     t0 = clock()
     for i in range(args.gen - 1):

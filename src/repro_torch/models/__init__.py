@@ -2,8 +2,7 @@
 
 Port of ``repro/models/__init__.py``.  The ``dense``, ``moe`` and ``vlm``
 families run through ``DecoderLM``, ``ssm`` and ``hybrid`` through
-``HybridLM``; the ``audio`` family's ``EncDecLM`` is not ported yet
-(ROADMAP queue 1 item 12).
+``HybridLM``, and ``audio`` through ``EncDecLM``.
 """
 from __future__ import annotations
 
@@ -14,7 +13,9 @@ from repro_torch.models.config import (  # noqa: F401
 
 def build_model(cfg: ModelConfig):
     """The family's model object (``param_defs``, ``init``,
-    ``hidden_states``, ``forward``, ``prefill``, ``decode_step``)."""
+    ``hidden_states``, ``forward``, ``loss``, ``prefill``,
+    ``decode_step``)."""
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.hybrid import HybridLM
     from repro_torch.models.transformer import DecoderLM
 
@@ -23,7 +24,5 @@ def build_model(cfg: ModelConfig):
     if cfg.family in ("ssm", "hybrid"):
         return HybridLM(cfg)
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"family 'audio' ({cfg.name}) is not ported yet: EncDecLM is "
-            f"ROADMAP queue 1 item 12")
+        return EncDecLM(cfg)
     raise ValueError(f"unknown family: {cfg.family}")

@@ -80,7 +80,8 @@ class ModelConfig:
     # Run the flash path through the hand-written attention kernel
     # (kernels/attention.py) instead of the plain block loop.
     flash_kernel: bool = False
-    # Chunked-vocab logsumexp in the CE loss (training; not ported yet).
+    # Chunked-vocab logsumexp in the CE loss: only one chunk's f32 logits
+    # are live (each chunk recomputed in the backward).  1 → single pass.
     ce_vocab_chunks: int = 1
     param_dtype: torch.dtype = torch.bfloat16
     # Citation of the source model card / paper for the exact numbers.

@@ -6,14 +6,14 @@ k, shared_attn)``; the per-repeat block parameters are stacked on a
 leading ``n_repeats`` axis, and the shared block's parameters live once at
 the top level, so every application reuses the same weights while each
 keeps its own KV cache slice.  The forward is a Python loop over the
-repeats (the reference's ``scan_blocks``; its ``remat``/``unroll``
-switches are for training and dry runs and are not carried over).
+repeats (the reference's ``scan_blocks``); with ``remat`` (the default)
+each repeat is recomputed in the backward pass of ``loss``.
 ``mamba2-130m`` (pattern ``("mamba",)``) runs through the same class.
 
 The prefill is one chunked-SSD pass: the decode cache (SSM final states,
 conv tails, shared-attention KV) falls out of it.  ``decode_step`` writes
 the new cache entries in place into the stacked cache it is given, as
-``DecoderLM.decode_step`` does.  The loss waits for the training slice.
+``DecoderLM.decode_step`` does.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.models import layers, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (init as init_params, stack_layers,
                                        tree_map, zeros)
+from repro_torch.models.scanning import remat
 
 Params = Any
 
@@ -73,6 +74,7 @@ def _mamba_block_defs(cfg: ModelConfig) -> dict:
 @dataclasses.dataclass
 class HybridLM:
     cfg: ModelConfig
+    remat: bool = True        # recompute each repeat in the backward
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -121,21 +123,24 @@ class HybridLM:
         shared = params.get("shared")
         cache = self.init_cache(b, s, device=h.device) if keep_cache else None
         C = self._shared_len(s)
-        for r in range(cfg.n_repeats):
+
+        def body(hh, blks, r):
+            """One repeat → h; with ``keep_cache`` its cache entries are
+            written into slot r of the stacked cache."""
             for i, kind in enumerate(cfg.pattern):
                 if kind == "mamba":
-                    blk = tree_map(lambda a: a[r], params["blocks"][f"b{i}"])
+                    blk = blks[f"b{i}"]
                     y = ssm.mamba_apply(
                         blk["mixer"], cfg,
-                        layers.rmsnorm(blk["norm"], h, cfg.norm_eps),
+                        layers.rmsnorm(blk["norm"], hh, cfg.norm_eps),
                         return_cache=keep_cache)
                     if keep_cache:
                         y, new = y
                         slot = cache[f"b{i}"]
-                    h = h + y
+                    hh = hh + y
                 else:
-                    h, (k, v) = _shared_block_train(shared, cfg, h,
-                                                    positions)
+                    hh, (k, v) = _shared_block_train(shared, cfg, hh,
+                                                     positions)
                     if keep_cache:
                         new = {"k": layers.ring_cache(k, C),
                                "v": layers.ring_cache(v, C)}
@@ -143,6 +148,11 @@ class HybridLM:
                 if keep_cache:
                     for name, t in new.items():
                         slot[name][r] = t
+            return hh
+
+        step = remat(body) if self.remat and not keep_cache else body
+        for r in range(cfg.n_repeats):
+            h = step(h, tree_map(lambda a: a[r], params["blocks"]), r)
         return layers.rmsnorm(params["final_norm"], h, cfg.norm_eps), cache
 
     def hidden_states(self, params: Params, batch: dict) -> torch.Tensor:
@@ -158,6 +168,13 @@ class HybridLM:
             h = self._layers(params, batch, keep_cache=False)[0]
             return (layers.unembed(params["embed"], self.cfg, h),
                     torch.zeros((), dtype=torch.float32, device=h.device))
+
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Next-token cross-entropy over the tokens."""
+        from repro_torch.models import losses
+        h = self._layers(params, batch, keep_cache=False)[0]
+        return losses.next_token_nll(params["embed"], self.cfg, h,
+                                     batch["tokens"])
 
     # -- decode ---------------------------------------------------------------
     def prefill(self, params: Params, batch: dict

@@ -36,12 +36,14 @@ class ParamDef:
                              f"in rank")
 
 
-def tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of a nested dict (keys in sorted order, as
-    ``jax.tree_util`` orders them)."""
+    ``jax.tree_util`` orders them), and over the matching leaves of the
+    trees ``rest`` of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def leaves(tree) -> list:

@@ -3,9 +3,9 @@
 Port of ``repro/models/transformer.py``.  Layers are grouped by the
 config's repeating ``pattern``; each pattern position's parameters (and
 KV cache) are stacked on a leading ``n_repeats`` axis, and the forward is
-a Python loop over the repeats (the reference's ``scan_blocks``; its
-``remat``/``unroll`` switches and the loss are training and dry-run
-concerns and wait for the training slice).
+a Python loop over the repeats (the reference's ``scan_blocks``).  With
+``remat`` (the default) each repeat is recomputed in the backward pass of
+``loss``, the reference's ``jax.checkpoint`` of its scanned body.
 
 ``decode_step`` writes each repeat's new key and value in place into the
 stacked cache it is given and returns it: the port's counterpart of the
@@ -23,6 +23,7 @@ from repro_torch.models import layers, moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (ParamDef, init as init_params,
                                        stack_layers, tree_map, zeros)
+from repro_torch.models.scanning import remat
 
 Params = Any
 
@@ -101,6 +102,7 @@ class DecoderLM:
     ``prefill``/``decode_step``."""
 
     cfg: ModelConfig
+    remat: bool = True        # recompute each repeat in the backward
 
     # -- parameter / cache definition trees --------------------------------
     def param_defs(self) -> dict:
@@ -156,14 +158,28 @@ class DecoderLM:
         positions = layers.positions(b, s, h.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         cache = self.init_cache(b, s, device=h.device) if keep_cache else None
-        for r in range(cfg.n_repeats):
+
+        def body(hh, aux, blks):
+            """One repeat → (h, aux, each pattern position's (k, v))."""
+            kvs = []
             for i, kind in enumerate(cfg.pattern):
-                blk = tree_map(lambda a: a[r], params["blocks"][f"b{i}"])
-                h, a, (k, v) = _block_train(blk, cfg, kind, h, positions)
+                hh, a, kv = _block_train(blks[f"b{i}"], cfg, kind, hh,
+                                         positions)
                 if a is not None:
                     aux = aux + a
-                if keep_cache:
+                kvs.append(kv)
+            return hh, aux, kvs
+
+        step = body
+        if self.remat and not keep_cache:
+            step = remat(lambda hh, aux, blks: body(hh, aux, blks)[:2])
+        for r in range(cfg.n_repeats):
+            out = step(h, aux, tree_map(lambda a: a[r], params["blocks"]))
+            h, aux = out[:2]
+            if keep_cache:
+                for i, kind in enumerate(cfg.pattern):
                     C = _cache_len(cfg, kind, s)
+                    k, v = out[2][i]
                     c = cache[f"b{i}"]
                     c["k"][r] = layers.ring_cache(k, C)
                     c["v"][r] = layers.ring_cache(v, C)
@@ -183,6 +199,18 @@ class DecoderLM:
         with torch.inference_mode():
             h, aux, _ = self._layers(params, batch, keep_cache=False)
             return layers.unembed(params["embed"], self.cfg, h), aux
+
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Next-token cross-entropy over the token (non-prefix) region,
+        plus ``router_aux_weight`` × the mean MoE aux loss."""
+        from repro_torch.models import losses
+        h, aux, _ = self._layers(params, batch, keep_cache=False)
+        tokens = batch["tokens"]
+        n_prefix = h.shape[1] - tokens.shape[1]
+        ce = losses.next_token_nll(params["embed"], self.cfg,
+                                   h[:, n_prefix:, :], tokens)
+        w = self.cfg.moe.router_aux_weight if self.cfg.moe else 0.0
+        return ce + w * aux
 
     # -- decode ---------------------------------------------------------------
     def prefill(self, params: Params, batch: dict

@@ -1,0 +1,19 @@
+"""Learning-rate schedules (port of ``repro/optim/schedule.py``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def cosine_schedule(step, *, warmup_steps: int = 100,
+                    total_steps: int = 10_000,
+                    min_ratio: float = 0.1) -> torch.Tensor:
+    """Linear warmup then cosine decay to ``min_ratio``; returns the scale
+    as an f32 0-d tensor (on ``step``'s device when it is a tensor)."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    warm = step / max(warmup_steps, 1)
+    prog = torch.clamp((step - warmup_steps) /
+                       max(total_steps - warmup_steps, 1), 0.0, 1.0)
+    cos = min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return torch.where(step < warmup_steps, warm, cos)

@@ -7,9 +7,11 @@ the reference), runs one prefill, then a greedy or sampled decode loop on
 the shared KV cache at positions ``prompt_len + i``.  A request stops at
 its ``max_new_tokens`` or at its ``eos_id`` (kept in its output); the wave
 runs until its longest request is done or every request has hit its eos.
+An ``audio`` model's wave also carries zero source frames
+(wave, ``prompt_len``, d_model), and its decode starts at position 1:
+the prefill decoded the prompt's first token at 0, as in the reference.
 The port runs eagerly on ``device`` and draws samples from ``generator``
-(the reference's ``seed``).  The audio family's branch (source embeddings,
-``start_pos`` 1) comes with ``EncDecLM`` (ROADMAP queue 1 item 12).
+(the reference's ``seed``).
 """
 from __future__ import annotations
 
@@ -66,9 +68,15 @@ class ServeEngine:
     def _serve_wave(self, wave: list[ServeRequest]) -> list[ServeResult]:
         tokens = torch.tensor([self._pad_prompt(r.prompt) for r in wave],
                               dtype=torch.int32, device=self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens})
+        batch = {"tokens": tokens}
+        if self.cfg.family == "audio":
+            batch["src_embeds"] = torch.zeros(
+                (len(wave), self.prompt_len, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        logits, cache = self.model.prefill(self.params, batch)
 
         max_new = max(r.max_new_tokens for r in wave)
+        start_pos = self.prompt_len if self.cfg.family != "audio" else 1
         results = [[] for _ in wave]
         done = np.zeros(len(wave), bool)
         for i in range(max_new):
@@ -85,5 +93,5 @@ class ServeEngine:
             if done.all() or i == max_new - 1:
                 break
             logits, cache = self.model.decode_step(self.params, cache, tok,
-                                                   self.prompt_len + i)
+                                                   start_pos + i)
         return [ServeResult(tokens=r) for r in results]

@@ -101,7 +101,7 @@ def test_config_classes_keep_every_reference_field_and_default(name):
         for k, v in jmconfig.INPUT_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["seamless-m4t-medium"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_ported_configs_equal_the_reference(arch, smoke):
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
@@ -114,31 +114,25 @@ def test_ported_configs_equal_the_reference(arch, smoke):
                                                   j.n_repeats)
 
 
-# The decoder archs are held against the reference in
-# tests/test_torch_decoder.py; the audio arch is the one left to port.
-UNPORTED = ["seamless-m4t-medium"]
-
-
+# Every arch is ported: the decoder archs are held against the reference
+# in tests/test_torch_decoder.py, the audio arch in
+# tests/test_torch_encdec.py.  (The test keeps its name from when the audio
+# arch still refused, naming ROADMAP item 12.)
 def test_unported_archs_and_families_raise_naming_the_roadmap():
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     for arch in tconfigs.ARCH_IDS:
-        if arch not in UNPORTED:
-            tconfigs.get_config(arch)
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-            tconfigs.get_config(arch)
-        # The reference's config, rebuilt as a port config, is refused by
-        # build_model for its family.
-        jd = dataclasses.asdict(jconfigs.get_config(arch))
-        jd["param_dtype"] = torch.bfloat16
-        jd["moe"] = jd["moe"] and tmconfig.MoEConfig(**jd["moe"])
-        jd["ssm"] = jd["ssm"] and tmconfig.SSMConfig(**jd["ssm"])
-        port_cfg = tmconfig.ModelConfig(**jd)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tbuild(port_cfg)
-        assert port_cfg.family == "audio"
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tsynthetic.batch_spec(port_cfg, 1, 8)
+        cfg = tconfigs.get_config(arch)
+        assert type(tbuild(cfg)).__name__ == \
+            type(jbuild(jconfigs.get_config(arch))).__name__
+    # The audio family's batches have the reference's shapes and dtypes.
+    jcfg = jconfigs.get_config("seamless-m4t-medium")
+    tcfg = tconfigs.get_config("seamless-m4t-medium")
+    assert tcfg.family == "audio"
+    for kind in ("train", "prefill", "decode"):
+        js = jsynthetic.batch_spec(jcfg, 2, 8, kind)
+        ts = tsynthetic.batch_spec(tcfg, 2, 8, kind)
+        assert {k: (tuple(v.shape), str(v.dtype)) for k, v in js.items()} \
+            == {k: (shape, _dt_name(dt)) for k, (shape, dt) in ts.items()}
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

@@ -154,21 +154,29 @@ def test_encode_driver_mamba_smoke():
 
 # The B-MOR plans are ported and need a process group: started without
 # torch.distributed.run they refuse, naming it (the ids are the cases'
-# names from when they named ROADMAP item 9).
+# names from when they named ROADMAP items 9 and 12).  The audio arch is
+# ported (item 12): it runs, and its features line is the reference's.
 @pytest.mark.parametrize("args,item", [
     pytest.param(["--solver", "bmor"], "torch.distributed.run",
                  id="args0-item 9"),
     pytest.param(["--solver", "bmor_dual"], "torch.distributed.run",
                  id="args1-item 9"),
-    # The decoder archs run (tests/test_torch_lm_serving.py); the audio
-    # arch still refuses, naming its item.
-    pytest.param(["--backbone", "seamless-m4t-medium", "--smoke"],
-                 "item 12", id="args2-item 12"),
+    pytest.param(["--backbone", "seamless-m4t-medium", "--smoke"], None,
+                 id="args2-item 12"),
 ])
 def test_encode_driver_refuses_unported_naming_roadmap_item(args, item):
     p = _port("encode", "--n", "64", "--targets", "8", *args)
-    assert p.returncode != 0
-    assert item in p.stderr, p.stderr
+    if item is not None:
+        assert p.returncode != 0
+        assert item in p.stderr, p.stderr
+        return
+    # The decoder's hidden states of n/16 batches of 8 frames + 8 tokens.
+    line = ("backbone features from seamless-m4t-medium-smoke: X(32, 256) "
+            "Y(32, 8)")
+    assert line in _ok(p)
+    assert line in _ok(_run(["repro.launch.encode", "--n", "64",
+                             "--targets", "8", *args]))
+    assert "dispatch: solver=ridge mesh=1x1" in p.stdout
 
 
 @pytest.mark.timeout(600)
@@ -280,12 +288,25 @@ def test_serve_fleet_drain_with_killed_worker(tmp_path):
     assert "2 workers drained cleanly" in out
 
 
+@pytest.mark.timeout(600)
 def test_serve_driver_llm_mode_names_item_12():
-    # LLM mode runs every ported arch (tests/test_torch_lm_serving.py); the
-    # audio arch's EncDecLM is still item 12.
-    p = _port("serve", "--arch", "seamless-m4t-medium", "--smoke")
-    assert p.returncode != 0
-    assert "item 12" in p.stderr, p.stderr
+    """The audio arch's ``EncDecLM`` (ROADMAP item 12, whose refusal this
+    test held until it was ported) serves in LLM mode: both packages
+    print the same three lines (the weights differ, so the times and
+    tokens do)."""
+    import re
+
+    args = ["--arch", "seamless-m4t-medium", "--smoke"]
+    pats = [r"prefill: \d+\.\d\ds  logits \(2, 1, 512\)",
+            r"decoded 16 tokens × batch 2 in \d+\.\d\ds "
+            r"\(\d+\.\d tok/s\)",
+            r"sample tokens: \[(\d+, ){11}\d+\]"]
+    for out in (_ok(_port("serve", *args)),
+                _ok(_run(["repro.launch.serve", *args]))):
+        lines = out.strip().splitlines()
+        assert len(lines) == 3, out
+        for line, pat in zip(lines, pats):
+            assert re.fullmatch(pat, line), line
 
 
 def test_obs_session_writes_trace_when_body_raises(tmp_path):

@@ -67,7 +67,12 @@ def test_port_has_every_slice_module():
               "repro_torch.configs.gemma3_12b",
               "repro_torch.configs.phi35_moe",
               "repro_torch.configs.grok1_314b",
-              "repro_torch.configs.llava_next_34b"):
+              "repro_torch.configs.llava_next_34b",
+              "repro_torch.configs.seamless_m4t_medium",
+              "repro_torch.models.encdec", "repro_torch.models.scanning",
+              "repro_torch.models.losses", "repro_torch.optim",
+              "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+              "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):
@@ -91,6 +96,19 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(_port_modules())
+
+
+def test_training_slice_imports_load_no_jax_and_no_repro():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.models.encdec, "
+            "repro_torch.optim, repro_torch.launch.train\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def _imports(path: Path) -> list[str]:

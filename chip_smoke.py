@@ -101,8 +101,8 @@ and just the listed phases, 6 and 12 to 20, and prints no result lines):
     on: primal at the ``parcels`` size (5 ``solve_lambda_grid`` and 6
     ``xty`` launches; its first solve held against the plain version on
     its operands; λ, W and CV curve against ``ridge_cv`` at the reference's
-    parity tolerance; wall times of both, and the seed path split into
-    Gram + eigh, solve, predictions + scores and refit), then dual at the
+    parity tolerance; wall times of both, and the seed path's own run
+    split into Gram + eigh, XᵀY, solve, scores and refit), then dual at the
     ``whole_brain_mor`` size (61 ``xty`` launches; equal to the plain seed
     path).
 12. The whole-brain subject at full width (``whole_brain_bmor``: n=10,000,
@@ -186,8 +186,11 @@ and just the listed phases, 6 and 12 to 20, and prints no result lines):
     launch ``ssd_intra`` once per Mamba layer (54) and ``xty_folds`` once
     and come out significant, and with the defaults (``--backbone vgg16``,
     n 512, t 256, p 128: one ``xty_folds``); each run's ``xty_folds``
-    launch is held against ``ref.xty_folds`` on its own operands.  (b) ``python -m
-    repro_torch.launch.wholebrain --device cuda`` at the reference's full
+    launch is held against ``ref.xty_folds`` on its own operands.  (b)
+    ``python -m repro_torch.launch.wholebrain --device cuda``, started in
+    the background (after phase 12 in a full run, at the phase's start
+    with ``--only``: its ten processes mostly start up, and phases 13–16,
+    (a) and (c) run beside it), at the reference's full
     shape (n 1,024, p 128, t 262,144, 8 folds, t_block 16,384 and the
     ragged 20,480; the A/B at 512 × 128 × 2,048; the crash gate killed
     after block 1) with per-phase traces; every gate of the driver, the
@@ -237,8 +240,8 @@ and just the listed phases, 6 and 12 to 20, and prints no result lines):
     launches in the prefill (head dimension 256, the local layers'
     4,096-key window, softcap 50); one local and one global launch held
     against ``ref.mha_flash`` and timed beside it and the bound.  (d)
-    phi3.5-moe-42b-a6.6b (4 of 32 layers) through ``ServeEngine`` and
-    llava-next-34b (8 of 60 layers) through ``prefill``/``decode_step``
+    phi3.5-moe-42b-a6.6b (2 of 32 layers) through ``ServeEngine`` and
+    llava-next-34b (4 of 60 layers) through ``prefill``/``decode_step``
     with ``make_batch``'s prefix embeddings, 2 × 2,048 positions, 16
     tokens, one flash launch per layer.  (e) gemma2-2b (1 × 8,192) and
     zamba2-2.7b (1 × 1,024) at 2 pattern repeats with the kernel switches
@@ -276,6 +279,7 @@ import functools
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -383,9 +387,10 @@ WB_DRIVER_CAP_MB = 1280.0
 # 16 and (c)'s 12 to 8; DIST_N keeps each training split 1.5 p rows, away
 # from the near-singular Gram of n_train ≈ p, where f32 CV scores of the
 # pooled and trace-identity forms drift apart.  The streamed fit reads
-# DIST_CHUNK_ROWS rows a chunk; every process group fails after
-# DIST_TIMEOUT_S instead of hanging.  DIST_TOL is the port's f32 parity
-# tolerance (tests/test_kernels.py::_tol).
+# DIST_CHUNK_ROWS rows a chunk; (c) starts with (b) and fits once (b)
+# is done, so its torchrun start-up overlaps (b); every process group
+# fails after DIST_TIMEOUT_S instead of hanging.  DIST_TOL is the port's
+# f32 parity tolerance (tests/test_kernels.py::_tol).
 DIST_N, DIST_FOLDS, DIST_CHUNK_ROWS = 36_864, 3, 4_096
 DIST_TIMEOUT_S = 600
 DIST_TOL = dict(rtol=1e-4, atol=2e-4)
@@ -394,9 +399,9 @@ DIST_TOL = dict(rtol=1e-4, atol=2e-4)
 # flash_block = 512, as phases 8-9 set them; the reference leaves both
 # None, so serve --arch at its defaults never reaches the flash path) on
 # prompts long enough that the local layers' 4,096-key window bites; (d)
-# the MoE and VLM archs at full width, depth cut to what one card holds
-# with room for the cache (phi3.5-moe: 84 GB of bf16 weights whole;
-# llava-next-34b: 69 GB); (e) kernel path against plain path in f32 at 2
+# the MoE and VLM archs at full width, depth cut (phi3.5-moe: 84 GB of
+# bf16 weights whole; llava-next-34b: 69 GB) to 2 and 4 layers, for the
+# time limit; (e) kernel path against plain path in f32 at 2
 # pattern repeats, prefill logits within LM_F32_TOL·max|logits| (f32
 # summation order in the flash and SSD kernels) and the greedy tokens
 # equal.
@@ -404,7 +409,7 @@ LM_HYBRID = ["--arch", "zamba2-2.7b", "--batch", "8", "--prompt-len", "256",
              "--gen", "32", "--device", "cuda"]
 LM_FLASH = 512
 LM_WAVE, LM_PROMPT, LM_GEN = 2, 8192, 32
-LM_CUT = {"phi3.5-moe-42b-a6.6b": 4, "llava-next-34b": 8}
+LM_CUT = {"phi3.5-moe-42b-a6.6b": 2, "llava-next-34b": 4}
 LM_CUT_PROMPT, LM_CUT_GEN = 2048, 16
 LM_F32 = {"gemma2-2b": 8192, "zamba2-2.7b": 1024}
 LM_F32_REPEATS, LM_F32_GEN, LM_F32_TOL = 2, 16, 2e-4
@@ -421,6 +426,23 @@ LM_F32_REPEATS, LM_F32_GEN, LM_F32_TOL = 2, 16, 2e-4
 # full width and depth: every loss finite, and the trained parameters
 # lower the loss of the first batch the driver trained on; no checkpoint
 # at this size.
+# Phase 18(a), continued: launch/steps.py's build_step on a (1, 1) mesh
+# in the NCCL world of one, parameters placed as DTensors
+# (convert.shard_params).  (i) gemma2-2b at full width and depth, the
+# kernels on (flash at LM_FLASH): the sharded prefill of MESH_LM_B ×
+# MESH_LM_PROMPT tokens and MESH_LM_GEN greedy tokens through the decode
+# step, equal to ServeEngine's on the same weights and prompts; (ii)
+# zamba2-2.7b at full width, phase 19's LM_F32_REPEATS repeats, f32: the
+# sharded prefill with the kernels on (ssd_intra, flash on the shared
+# attention) against the same step on the plain path, within LM_F32_TOL;
+# (iii) qwen3-1.7b at full width, MESH_TRAIN_LAYERS of its 28 layers, f32:
+# MESH_TRAIN_STEPS train steps, each loss equal within MESH_TRAIN_RTOL to
+# the same update done on plain tensors outside the mesh (model.loss,
+# torch.autograd.grad, adamw_update).
+MESH_LM_B, MESH_LM_PROMPT, MESH_LM_GEN = 2, 2048, 16
+MESH_HYBRID_SEQ = 1024
+MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_SEQ = 4, 4, 1024
+MESH_TRAIN_STEPS, MESH_TRAIN_RTOL = 2, 1e-4
 AUDIO = "seamless-m4t-medium"
 AUDIO_BATCH, AUDIO_FRAMES, AUDIO_GEN = 8, 4096, 32
 AUDIO_FEAT_B, AUDIO_TOKENS = 2, 1024
@@ -2103,44 +2125,43 @@ def phase_seed_kernels_full(card: str, heldout, reps: int
 # --------------------------------------------------------------------------
 # Phase 11
 # --------------------------------------------------------------------------
-def _seed_breakdown(X, Y, cfg):
-    """``ridge_cv_reference``'s steps with the port's own functions, the
-    device synchronised after each → (seconds by stage, CV curve, W)."""
+SEED_STAGES = {"factorize": "gram+eigh", "gram_xty": "XtY",
+               "solve_lambda_grid": "solve_lambda_grid", "_score": "score",
+               "solve": "refit"}
+
+
+def _seed_stages(ridge, n_folds: int):
+    """Patches of ``ridge``'s steps that time ``ridge_cv_reference``'s own
+    run, the device synchronised around each → (patches, seconds by
+    stage, calls by stage).  Every step after the last fold's score is
+    the refit's; a step called inside another is the caller's."""
     import torch
-    from repro_torch.core import foldstats, ridge
 
-    sec = dict.fromkeys(("gram+eigh", "XtY", "solve_lambda_grid",
-                         "predict+score", "refit"), 0.0)
+    sec = dict.fromkeys(SEED_STAGES.values(), 0.0)
+    calls = dict.fromkeys(sec, 0)
+    depth = [0]
 
-    def lap(key, t0):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        sec[key] += now - t0
-        return now
+    def staged(fn, key):
+        def wrapper(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            stage = "refit" if calls["score"] == n_folds else key
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
+            sec[stage] += time.perf_counter() - t0
+            calls[stage] += 1
+            return out
+        return wrapper
 
-    scores = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for lo, hi in foldstats.fold_bounds(X.shape[0], cfg.n_folds):
-        X_tr = torch.cat([X[:lo], X[hi:]])
-        factors = ridge.factorize(X_tr, cfg)
-        t0 = lap("gram+eigh", t0)
-        rhs = ridge.gram_xty(X_tr, torch.cat([Y[:lo], Y[hi:]]))
-        del X_tr
-        t0 = lap("XtY", t0)
-        Ws = ridge.solve_lambda_grid(factors, rhs, cfg.lambdas,
-                                     use_pallas=cfg.use_pallas)
-        del factors, rhs
-        t0 = lap("solve_lambda_grid", t0)
-        preds = torch.einsum("np,rpt->rnt", X[lo:hi].float(), Ws)
-        scores.append(ridge._score(Y[lo:hi], preds, cfg.scoring))
-        del Ws, preds
-        t0 = lap("predict+score", t0)
-    cv = torch.stack(scores).mean(0)
-    lam = ridge._lambda_grid(cfg, X.device)[torch.argmax(cv)]
-    W = ridge.solve(ridge.factorize(X, cfg), ridge.gram_xty(X, Y), lam)
-    lap("refit", t0)
-    return sec, cv, W
+    patches = [(ridge, name, staged(getattr(ridge, name), key))
+               for name, key in SEED_STAGES.items()]
+    return patches, sec, calls
 
 
 def phase_seed_primal(card: str) -> int:
@@ -2166,17 +2187,16 @@ def phase_seed_primal(card: str) -> int:
             first.update(args=(q, evals, a, lambdas), out=out)
         return out
 
+    # The entry point's run is also its split by stage (_seed_stages).
+    stages, sec, calls = _seed_stages(ridge, cfg.n_folds)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
-    ops.solve_lambda_grid = keep_first
-    try:
+    with _patched((ops, "solve_lambda_grid", keep_first), *stages):
         t0 = time.perf_counter()
         seed = ridge.ridge_cv_reference(X, Y, cfg)
         torch.cuda.synchronize()
         seed_s = time.perf_counter() - t0
-    finally:
-        ops.solve_lambda_grid = solve
     launches = _counters()
     peak = torch.cuda.max_memory_allocated()
     want = {"solve_lambda_grid": cfg.n_folds, "xty": cfg.n_folds + 1}
@@ -2217,20 +2237,22 @@ def phase_seed_primal(card: str) -> int:
                                new.weights.cpu().numpy(), rtol=SEED_W_TOL,
                                atol=SEED_W_TOL)
     check(bool(torch.isfinite(seed.weights).all()), "seed W non-finite")
-    del new
-    free()
-    sec, cv_b, W_b = _seed_breakdown(X, Y, cfg)
-    total = sum(sec.values())
-    same = (torch.equal(cv_b, seed.cv_scores)
-            and torch.equal(W_b, seed.weights))
-    print(f"[seed-primal] time split (the same steps, synchronised after "
-          f"each; {total:.2f} s in all, result bitwise equal to the entry "
-          f"point's: {same}): " + ", ".join(
-              f"{k} {v:.2f} s ({100 * v / total:.1f}%)"
-              for k, v in sec.items()) + f" [{card}]")
-    check(torch.allclose(cv_b, seed.cv_scores, rtol=1e-5, atol=1e-6),
-          "the timed steps give another CV curve than the entry point")
-    del X, Y, seed, W_b
+    rest = seed_s - sum(sec.values())
+    print(f"[seed-primal] ridge_cv_reference's time split (its own run "
+          f"above, synchronised around each step; {seed_s:.2f} s in all): "
+          + ", ".join(f"{k} {v:.2f} s ({100 * v / seed_s:.1f}%)"
+                      for k, v in sec.items())
+          + f", the rest (splits, predictions) {rest:.2f} s "
+          f"({100 * rest / seed_s:.1f}%); calls {calls} [{card}]")
+    # Each fold factorises, forms XᵀY, sweeps λ and scores once; the refit
+    # factorises, forms XᵀY and solves: the split covers every step.
+    want_calls = {**dict.fromkeys(("gram+eigh", "XtY", "solve_lambda_grid",
+                                   "score"), cfg.n_folds), "refit": 3}
+    check(calls == want_calls, f"the split saw calls {calls}, want "
+          f"{want_calls}")
+    check(rest >= 0.0, f"the timed steps took {sum(sec.values()):.2f} s of "
+          f"a {seed_s:.2f} s run")
+    del X, Y, seed, new
     free()
     return launches["solve_lambda_grid"]
 
@@ -3278,26 +3300,94 @@ def phase_serving(card: str) -> None:
 # --------------------------------------------------------------------------
 # Phase 17
 # --------------------------------------------------------------------------
-def _run_driver(tag: str, argv: list[str], card: str) -> str:
-    """``python -m repro_torch.launch.<argv>`` in a new process with the
-    recompile sentinel armed; it must exit 0.  → its standard output."""
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", *argv], cwd=ROOT,
-        env=dict(os.environ, REPRO_OBS_STRICT="1",
-                 PYTHONPATH=str(ROOT / "src")),
-        capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    for line in out.stdout.splitlines():
+DRIVER_TIMEOUT_S = 900
+
+
+def _start_driver(tag: str, argv: list[str], logs: Path) -> dict:
+    """Start ``python -m repro_torch.launch.<argv>`` in a new process group
+    with the recompile sentinel armed, its output to files under
+    ``logs`` (``_finish_driver`` collects it, ``_stop_driver`` ends it)."""
+    logs.mkdir(parents=True, exist_ok=True)
+    slug = tag.replace(" ", "_")
+    out, err = logs / f"{slug}.out", logs / f"{slug}.err"
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=ROOT,
+            env=dict(os.environ, REPRO_OBS_STRICT="1",
+                     PYTHONPATH=str(ROOT / "src")),
+            stdout=fo, stderr=fe, start_new_session=True)
+    return dict(tag=tag, argv=argv, proc=proc, out=out, err=err,
+                t0=time.perf_counter())
+
+
+def _stop_driver(h: dict | None) -> None:
+    """End a started driver and every process it started, if still
+    running."""
+    if h is None or h["proc"].poll() is not None:
+        return
+    try:
+        os.killpg(h["proc"].pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    h["proc"].wait()
+
+
+def _finish_driver(h: dict, card: str, beside: str = "") -> str:
+    """Wait for a started driver (within DRIVER_TIMEOUT_S of its start);
+    it must exit 0.  → its standard output."""
+    tag, argv, proc = h["tag"], h["argv"], h["proc"]
+    try:
+        rc = proc.wait(timeout=max(
+            1.0, DRIVER_TIMEOUT_S - (time.perf_counter() - h["t0"])))
+    except subprocess.TimeoutExpired:
+        _stop_driver(h)
+        rc = "timeout"
+    wall = time.perf_counter() - h["t0"]
+    stdout = h["out"].read_text()
+    for line in stdout.splitlines():
         if not line.startswith("WHOLEBRAIN_RESULT"):
             print(f"[drivers]   {tag}: {line}")
-    if out.returncode != 0:
-        print(out.stderr[-6000:], file=sys.stderr)
-    check(out.returncode == 0, f"{tag}: python -m {' '.join(argv)} exited "
-          f"{out.returncode}")
+    if rc != 0:
+        print(h["err"].read_text()[-6000:], file=sys.stderr)
+    check(rc == 0, f"{tag}: python -m {' '.join(argv)} exited {rc}")
     print(f"[drivers] {tag}: python -m {' '.join(argv)} exited 0 in "
-          f"{wall:.2f} s [{card}]")
-    return out.stdout
+          f"{wall:.2f} s{beside} [{card}]")
+    return stdout
+
+
+def _run_driver(tag: str, argv: list[str], card: str, logs: Path) -> str:
+    """``_start_driver`` then ``_finish_driver``: one driver run to its
+    end.  → its standard output."""
+    h = _start_driver(tag, argv, logs)
+    try:
+        return _finish_driver(h, card)
+    finally:
+        _stop_driver(h)
+
+
+def _start_wholebrain_driver(card: str) -> dict:
+    """Phase 17(b)'s whole-brain driver, started in the background (its
+    ten processes mostly start up and stage files: the work beside it
+    fills that time).  → the handle ``phase_drivers`` finishes; its
+    ``root`` holds the driver's store, bundle and logs."""
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    need = 1024 * (128 + 262_144) * 4 + 128 * 262_144 * 4 + (1 << 30)
+    free_b = shutil.disk_usage(build).free
+    print(f"[drivers] whole-brain driver: store and bundle "
+          f"{(need - (1 << 30)) / 1e9:.2f} GB under {build} "
+          f"({free_b / 1e9:.1f} GB free)")
+    check(free_b > need, f"phase 17 needs {need / 1e9:.1f} GB of disk "
+          f"under {build}, which has {free_b / 1e9:.1f} GB free")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_", dir=build))
+    wb_out = root / "BENCH_wholebrain_torch.json"
+    h = _start_driver("wholebrain", [
+        "repro_torch.launch.wholebrain", "--device", "cuda",
+        "--workdir", str(root / "wb"), "--out", str(wb_out),
+        "--cap-mb", str(WB_DRIVER_CAP_MB),
+        "--trace-out", str(root / "wb.jsonl"),
+        "--metrics-out", str(root / "wb.json")], root / "logs")
+    return dict(h, root=root, wb_out=wb_out, beside="")
 
 
 def _encode_in_process(tag: str, argv: list[str], card: str,
@@ -3325,9 +3415,12 @@ def _encode_in_process(tag: str, argv: list[str], card: str,
     return out.getvalue(), launches, wall
 
 
-def phase_drivers(card: str) -> dict:
+def phase_drivers(card: str, wb: dict | None = None) -> dict:
     """Phase 17: the drivers a lab runs, from their command lines.
-    → kernel launches of the runs this process counts."""
+    ``wb``: the whole-brain driver, started before phases 13–16 in a
+    full run (``_start_wholebrain_driver``), else started here; (a) and
+    (c) run beside it.  → kernel launches of the runs this process
+    counts."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -3365,80 +3458,90 @@ def phase_drivers(card: str) -> dict:
               f"{want}")
         held.clear()
 
-    hold_folds = (ops, "xty_folds",
-                  holding("xty_folds", ops.xty_folds, ref.xty_folds))
-    # (a) The backbone mode feeds 16-token sequences: ssd_intra at Q = 16,
-    # zamba2-2.7b's H and P, one chunk per sequence, held against its plain
-    # version first (f32 operands, as mamba_apply passes them, and bf16).
-    cfg = configs.for_device(configs.get_config(DRV_BACKBONE), "cuda")
-    check(cfg.ssm.use_kernel and cfg.flash_kernel, "configs.for_device: "
-          "the kernel tier is off on a CUDA device")
-    h, pd = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
-    n_seq = DRV_N // DRV_SEQ
-    g = torch.Generator("cuda").manual_seed(17)
-    cb = torch.randn(n_seq, DRV_SEQ, DRV_SEQ, device="cuda",
-                     generator=g) / DRV_SEQ ** 0.5
-    la = torch.cumsum(-torch.rand(n_seq, DRV_SEQ, h, device="cuda",
-                                  generator=g) * 0.1, dim=1)
-    x = torch.randn(n_seq, DRV_SEQ, h, pd, device="cuda", generator=g)
-    for dt in (torch.float32, torch.bfloat16):
-        ops_ = [a.to(dt) for a in (cb, la, x)]
-        err = _close(f"ssd_intra N={n_seq} Q={DRV_SEQ} H={h} P={pd} {dt}",
-                     ssd.ssd_intra(*ops_), ref.ssd_intra(*ops_))
-        print(f"[drivers] ssd_intra at the driver's chunk (N={n_seq}, "
-              f"Q={DRV_SEQ}, H={h}, P={pd}, {str(dt)[6:]} operands) against "
-              f"ref.ssd_intra: max abs err {err:.3e} [{card}]")
-    del cb, la, x, ops_
-    free()
-    n_mamba = cfg.n_repeats * sum(k == "mamba" for k in cfg.pattern)
-    out, launches, _ = _encode_in_process(
-        "zamba2", ["--backbone", DRV_BACKBONE, "--n", str(DRV_N),
-                   "--targets", str(PARCELS), "--device", "cuda"], card,
-        patches=[hold_folds])
-    print_held("zamba2 encode's xty_folds", 1)
-    check(f"X({DRV_N}, {cfg.d_model})" in out, "zamba2 feature shape")
-    check("aligned encoding is significant" in out,
-          "zamba2 features: not significant")
-    want = dict({k: 0 for k in launches}, ssd_intra=n_mamba, xty_folds=1)
-    check(launches == want and n_mamba == 54,
-          f"zamba2 encode launches {launches}, want {want}")
-    for k, v in launches.items():
-        total[k] = total.get(k, 0) + v
-    free()
-    out, launches, _ = _encode_in_process("vgg16", ["--device", "cuda"],
-                                          card, patches=[hold_folds])
-    print_held("vgg16 encode's xty_folds", 1)
-    check("X(512, 128)" in out and "Y(512, 256)" in out, "vgg16 shapes")
-    check(launches == dict({k: 0 for k in launches}, xty_folds=1),
-          f"vgg16 encode launches {launches}")
-    for k, v in launches.items():
-        total[k] = total.get(k, 0) + v
-    free()
-
-    # (b) The whole-brain driver at the reference's full shape, each phase
-    # its own process (their launches come back in the result lines).
-    build = ROOT / "build"
-    build.mkdir(exist_ok=True)
-    need = 1024 * (128 + 262_144) * 4 + 128 * 262_144 * 4 + (1 << 30)
-    free_b = shutil.disk_usage(build).free
-    print(f"[drivers] whole-brain driver: store and bundle "
-          f"{(need - (1 << 30)) / 1e9:.2f} GB under {build} "
-          f"({free_b / 1e9:.1f} GB free)")
-    check(free_b > need, f"phase 17 needs {need / 1e9:.1f} GB of disk "
-          f"under {build}, which has {free_b / 1e9:.1f} GB free")
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_", dir=build))
+    if wb is None:
+        wb = _start_wholebrain_driver(card)
+        wb["beside"] = ", beside (a) and (c)"
+    root = wb["root"]
     try:
-        wb_out = root / "BENCH_wholebrain_torch.json"
-        _run_driver("wholebrain", [
-            "repro_torch.launch.wholebrain", "--device", "cuda",
-            "--workdir", str(root / "wb"), "--out", str(wb_out),
-            "--cap-mb", str(WB_DRIVER_CAP_MB),
-            "--trace-out", str(root / "wb.jsonl"),
-            "--metrics-out", str(root / "wb.json")], card)
+        hold_folds = (ops, "xty_folds",
+                      holding("xty_folds", ops.xty_folds, ref.xty_folds))
+        # (a) The backbone mode feeds 16-token sequences: ssd_intra at
+        # Q = 16, zamba2-2.7b's H and P, one chunk per sequence, held
+        # against its plain version first (f32 operands, as mamba_apply
+        # passes them, and bf16).
+        cfg = configs.for_device(configs.get_config(DRV_BACKBONE), "cuda")
+        check(cfg.ssm.use_kernel and cfg.flash_kernel, "configs.for_device: "
+              "the kernel tier is off on a CUDA device")
+        pd = cfg.ssm.head_dim
+        h = cfg.ssm.expand * cfg.d_model // pd
+        n_seq = DRV_N // DRV_SEQ
+        g = torch.Generator("cuda").manual_seed(17)
+        cb = torch.randn(n_seq, DRV_SEQ, DRV_SEQ, device="cuda",
+                         generator=g) / DRV_SEQ ** 0.5
+        la = torch.cumsum(-torch.rand(n_seq, DRV_SEQ, h, device="cuda",
+                                      generator=g) * 0.1, dim=1)
+        x = torch.randn(n_seq, DRV_SEQ, h, pd, device="cuda", generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            ops_ = [a.to(dt) for a in (cb, la, x)]
+            err = _close(f"ssd_intra N={n_seq} Q={DRV_SEQ} H={h} P={pd} {dt}",
+                         ssd.ssd_intra(*ops_), ref.ssd_intra(*ops_))
+            print(f"[drivers] ssd_intra at the driver's chunk (N={n_seq}, "
+                  f"Q={DRV_SEQ}, H={h}, P={pd}, {str(dt)[6:]} operands) "
+                  f"against ref.ssd_intra: max abs err {err:.3e} [{card}]")
+        del cb, la, x, ops_
+        free()
+        n_mamba = cfg.n_repeats * sum(k == "mamba" for k in cfg.pattern)
+        out, launches, _ = _encode_in_process(
+            "zamba2", ["--backbone", DRV_BACKBONE, "--n", str(DRV_N),
+                       "--targets", str(PARCELS), "--device", "cuda"], card,
+            patches=[hold_folds])
+        print_held("zamba2 encode's xty_folds", 1)
+        check(f"X({DRV_N}, {cfg.d_model})" in out, "zamba2 feature shape")
+        check("aligned encoding is significant" in out,
+              "zamba2 features: not significant")
+        want = dict({k: 0 for k in launches}, ssd_intra=n_mamba, xty_folds=1)
+        check(launches == want and n_mamba == 54,
+              f"zamba2 encode launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        free()
+        out, launches, _ = _encode_in_process("vgg16", ["--device", "cuda"],
+                                              card, patches=[hold_folds])
+        print_held("vgg16 encode's xty_folds", 1)
+        check("X(512, 128)" in out and "Y(512, 256)" in out, "vgg16 shapes")
+        check(launches == dict({k: 0 for k in launches}, xty_folds=1),
+              f"vgg16 encode launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        free()
+
+        # (c) The serving driver, beside (b): the checked-in trace, then
+        # the faults lane's two-worker drain with worker 0 killed.
+        trace = ROOT / "benchmarks" / "traces" / "mixed_v1.json"
+        out = _run_driver("serve replay", [
+            "repro_torch.launch.serve", "--device", "cuda",
+            "--replay-trace", str(trace),
+            "--bundle-dir", str(root / "fleet_a")], card, root / "logs")
+        check("0 backpressure rejections, 0 faults" in out,
+              "trace replay rejected or faulted")
+        out = _run_driver("serve fleet", [
+            "repro_torch.launch.serve", "--device", "cuda", "--encoders",
+            "4", "--bundle-dir", str(root / "fleet_b"), "--workers", "2",
+            "--kill-worker", "0", "--n", "128", "--targets", "64",
+            "--serve-steps", "3", "--requests-per-step", "4"], card,
+            root / "logs")
+        check("lease gate: w0 SIGKILLed" in out
+              and "2 workers drained cleanly" in out,
+              "fleet drain: no lease gate line")
+        # (b) The whole-brain driver at the reference's full shape, each
+        # phase its own process (their launches come back in the result
+        # lines), started before (a).
+        wb_out = wb["wb_out"]
+        _finish_driver(wb, card, wb["beside"])
         doc = json.loads(wb_out.read_text())
         _run_driver("obs_report", [
             "repro_torch.launch.obs_report", str(root / "wb.fit16384.jsonl"),
-            "--assert-coverage", str(COVERAGE_GATE)], card)
+            "--assert-coverage", str(COVERAGE_GATE)], card, root / "logs")
         for fit in doc["fit_vs_t_block"]:
             print(f"[drivers] whole-brain fit t_block={fit['t_block']}: "
                   f"{fit['wall_s']} s, {fit['n_blocks']} blocks, device peak "
@@ -3525,25 +3628,8 @@ def phase_drivers(card: str) -> dict:
                 check(same, "the driver's bundle differs from the held fit")
             del res
             free()
-
-        # (c) The serving driver: the checked-in trace, then the faults
-        # lane's two-worker drain with worker 0 killed.
-        trace = ROOT / "benchmarks" / "traces" / "mixed_v1.json"
-        out = _run_driver("serve replay", [
-            "repro_torch.launch.serve", "--device", "cuda",
-            "--replay-trace", str(trace),
-            "--bundle-dir", str(root / "fleet_a")], card)
-        check("0 backpressure rejections, 0 faults" in out,
-              "trace replay rejected or faulted")
-        out = _run_driver("serve fleet", [
-            "repro_torch.launch.serve", "--device", "cuda", "--encoders",
-            "4", "--bundle-dir", str(root / "fleet_b"), "--workers", "2",
-            "--kill-worker", "0", "--n", "128", "--targets", "64",
-            "--serve-steps", "3", "--requests-per-step", "4"], card)
-        check("lease gate: w0 SIGKILLed" in out
-              and "2 workers drained cleanly" in out,
-              "fleet drain: no lease gate line")
     finally:
+        _stop_driver(wb)
         shutil.rmtree(root, ignore_errors=True)
     return total
 
@@ -3640,6 +3726,14 @@ def _dist_child(spec_path: str) -> int:
     dev = compat.init_from_env("cuda", "gloo", timeout_s=spec["timeout_s"])
     rank = compat.rank()
     _build.load()
+    if spec.get("after"):
+        # Started beside another world: fit once that world is done.
+        deadline = time.monotonic() + spec["timeout_s"]
+        while not Path(spec["after"]).exists():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"{spec['after']} did not appear within "
+                                   f"{spec['timeout_s']} s")
+            time.sleep(0.2)
     out = Path(spec["out"])
     held: list = []
     res: dict = {"rank": rank, "device": str(dev), "seconds": {},
@@ -3875,9 +3969,24 @@ def phase_multidevice(card: str) -> dict:
         print(f"[multidevice] store of {DIST_N} rows × (16,384 + 444) "
               f"written in {time.perf_counter() - t0:.2f} s")
         spec = dict(store=str(root / "store"), timeout_s=DIST_TIMEOUT_S)
-        # (b) Four gloo ranks on cuda:0: dual B-MOR 1×4, primal 2×2.
-        ranks_b = _torchrun_wait("(b)", _torchrun(
-            4, dict(spec, world="b", out=str(root / "b"))), card)
+        # (b) Four gloo ranks on cuda:0: dual B-MOR 1×4, primal 2×2; and
+        # (c) two gloo ranks: the sharded streamed fit of the same rows.
+        # (c) starts with (b), so its start-up overlaps (b)'s work, but
+        # its ranks wait for the gate file before they fit: both worlds'
+        # fits at once do not fit one card.  The one-device check of (b)
+        # and (c) runs here beside (c)'s fit.
+        gate = root / "b_done"
+        run_b = _torchrun(4, dict(spec, world="b", out=str(root / "b")))
+        run_c = _torchrun(2, dict(spec, world="c", out=str(root / "c"),
+                                  after=str(gate)))
+        try:
+            ranks_b = _torchrun_wait("(b)", run_b, card)
+        except BaseException:
+            run_c[0].kill()
+            run_c[0].wait()
+            raise
+        finally:
+            gate.touch()
         add(_print_world("(b)", ranks_b, card))
         r0 = ranks_b[0]
         check(r0["dual_decision"] == ["bmor_dual", "dual", 1, 4]
@@ -3891,10 +4000,6 @@ def phase_multidevice(card: str) -> dict:
               f"one-device dual solve of its columns at its λ: max abs err "
               f"{r0['dual_batch_err']:.3e} ({r0['seconds']['dual_check']:.2f} "
               f"s) [{card}]")
-        # (c) Two gloo ranks: the sharded streamed fit of the same rows,
-        # started before the one-device check of (b) and (c), which runs
-        # here on the card while (c)'s ranks start.
-        run_c = _torchrun(2, dict(spec, world="c", out=str(root / "c")))
         t0 = time.perf_counter()
         Xs, Ys = RunStore.open(spec["store"]).load()
         X = torch.from_numpy(Xs).cuda()
@@ -3934,7 +4039,7 @@ def phase_multidevice(card: str) -> dict:
               f"!= in-memory {lam}")
         c_err = _within("(c) W", c_arr["streamed_W"], W)
         print(f"[multidevice] one device on the same {DIST_N} rows "
-              f"({one_s:.2f} s beside (c)'s start, {DIST_FOLDS + 1} eighs "
+              f"({one_s:.2f} s beside (c)'s ranks, {DIST_FOLDS + 1} eighs "
               f"shared by the batches): (b) "
               f"B-MOR 2×2 batches λ {r0['primal_lam']} equal to ridge_cv of "
               f"their columns, W and CV curve max abs err {max(errs):.3e}; "
@@ -3993,11 +4098,194 @@ def phase_multidevice(card: str) -> dict:
                   f"CV max abs err {cv_err:.3e} [{card}]")
             del X, Y, enc, one
             free()
+        add(_mesh_steps(dev, card))
     finally:
         compat.shutdown()
         for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
             os.environ.pop(k, None)
         init.unlink(missing_ok=True)
+    return total
+
+
+def _mesh_steps(dev, card: str) -> dict:
+    """Phase 18(a), continued: ``build_step``'s sharded prefill, decode and
+    train steps on a (1, 1) mesh in this process's NCCL world of one (see
+    MESH_LM_B).  → the kernel launches of (i) and (ii)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs, convert
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.params import leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.serving import ServeEngine, ServeRequest
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(model=1, device=dev)
+    total = {"flash_attention": 0, "ssd_intra": 0}
+    held, keep = {}, {}
+    patches = _holding_lm(held, keep)
+
+    # (i) gemma2-2b: the sharded prefill and decode against ServeEngine.
+    cfg = _lm_cfg("gemma2-2b")
+    model = build_model(cfg)
+    g = torch.Generator("cuda").manual_seed(23)
+    params = model.init(g, device=dev)
+    prompts = torch.randint(1, cfg.vocab, (MESH_LM_B, MESH_LM_PROMPT),
+                            generator=g, device=dev)
+    sharded = convert.shard_params(params, cfg, mesh)
+    pre = steps.build_step(cfg, mesh, InputShape(
+        "p", MESH_LM_PROMPT, MESH_LM_B, "prefill"))
+    dec = steps.build_step(cfg, mesh, InputShape(
+        "d", MESH_LM_PROMPT, MESH_LM_B, "decode"))
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _patched(*patches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(sharded, {"tokens": prompts})
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        launches = _counters()
+        toks = []
+        t0 = time.perf_counter()
+        for i in range(MESH_LM_GEN):
+            tok = torch.argmax(logits.to_local()[:, -1], -1).to(
+                torch.int32)[:, None]
+            toks.append(tok)
+            if i < MESH_LM_GEN - 1:
+                logits, cache = dec.fn(sharded, cache, tok,
+                                       MESH_LM_PROMPT + i)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    dec_launches = {k: v - launches[k] for k, v in _counters().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(steps.is_dtensor(logits) and tuple(logits.shape) ==
+          (MESH_LM_B, 1, cfg.vocab), f"gemma2 step logits {logits.shape}")
+    check(launches == dict({k: 0 for k in launches},
+                           flash_attention=cfg.n_layers),
+          f"gemma2 sharded prefill launches {launches}")
+    check(not any(dec_launches.values()), f"gemma2 decode launches "
+          f"{dec_launches}")
+    got = torch.cat(toks, 1).tolist()
+    del sharded, cache, logits, pre, dec
+    free()
+    engine = ServeEngine(model, params, cfg, wave_size=MESH_LM_B,
+                         prompt_len=MESH_LM_PROMPT, device=dev)
+    want = [r.tokens for r in engine.serve([
+        ServeRequest(p, max_new_tokens=MESH_LM_GEN)
+        for p in prompts.tolist()])]
+    check(got == want, f"gemma2: build_step's greedy tokens {got} differ "
+          f"from ServeEngine's {want}")
+    print(f"[multidevice] (a) build_step on a (1, 1) mesh, gemma2-2b full "
+          f"depth, DTensor weights: prefill {MESH_LM_B} × {MESH_LM_PROMPT} "
+          f"{pre_s:.3f} s (launches {launches}), {MESH_LM_GEN - 1} decode "
+          f"steps {dec_s:.3f} s "
+          f"({MESH_LM_B * (MESH_LM_GEN - 1) / dec_s:.1f} tok/s), peak "
+          f"{peak:.2f} GiB; {MESH_LM_GEN} greedy tokens equal to "
+          f"ServeEngine's [{card}]")
+    total["flash_attention"] += launches["flash_attention"]
+    del params, engine, model
+    keep.clear()
+    free()
+
+    # (ii) zamba2-2.7b: the sharded prefill, kernels against plain, f32.
+    base = configs.get_config("zamba2-2.7b")
+    kern = _lm_cfg("zamba2-2.7b", param_dtype=torch.float32,
+                   n_layers=len(base.pattern) * LM_F32_REPEATS)
+    plain = configs.for_device(kern, "cpu")
+    params = build_model(kern).init(g, device=dev)
+    batch = synthetic.make_batch(g, kern, 1, MESH_HYBRID_SEQ, "prefill",
+                                 device=dev)
+    sharded = convert.shard_params(params, kern, mesh)
+    shape = InputShape("p", MESH_HYBRID_SEQ, 1, "prefill")
+    _reset_counters()
+    with _patched(*patches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, _ = steps.build_step(kern, mesh, shape).fn(sharded, batch)
+        torch.cuda.synchronize()
+        k_s = time.perf_counter() - t0
+    launches = _counters()
+    lp, _ = steps.build_step(plain, mesh, shape).fn(sharded, batch)
+    check(not any(_counters()[k] - launches[k] for k in launches),
+          "zamba2: the plain step launched a kernel")
+    lk, lp = lk.to_local(), lp.to_local()
+    err = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    n_mamba = LM_F32_REPEATS * sum(k == "mamba" for k in kern.pattern)
+    check(launches["ssd_intra"] == n_mamba and
+          launches["flash_attention"] == LM_F32_REPEATS,
+          f"zamba2 sharded prefill launches {launches}")
+    check(err <= LM_F32_TOL * scale, f"zamba2 sharded prefill logits "
+          f"{err:.3e} > {LM_F32_TOL:g}·{scale:.3e}")
+    print(f"[multidevice] (a) build_step, zamba2-2.7b {kern.n_layers} layers "
+          f"f32, prefill 1 × {MESH_HYBRID_SEQ} {k_s:.3f} s, launches "
+          f"{launches}, against the plain step: logits max err {err:.3e} of "
+          f"max|logits| {scale:.4e} [{card}]")
+    for k in total:
+        total[k] += launches[k]
+    del params, sharded, lk, lp, batch
+    free()
+
+    # (iii) qwen3-1.7b: sharded train steps against the plain update.
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"),
+                              n_layers=MESH_TRAIN_LAYERS,
+                              param_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(g, device=dev)
+    sharded = convert.shard_params(params, cfg, mesh)
+    opt = adamw_init(sharded)
+    bundle = steps.build_step(cfg, mesh, InputShape(
+        "t", MESH_TRAIN_SEQ, MESH_TRAIN_B, "train"), opt=AdamWConfig())
+    stream = synthetic.TokenStream(cfg, MESH_TRAIN_B, MESH_TRAIN_SEQ,
+                                   device=dev)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    got, step_s = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded, opt, met = bundle.fn(sharded, opt, stream.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        got.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(_counters().values()), f"qwen3 train launched kernels "
+          f"{_counters()} (training runs the plain paths)")
+    check(all(steps.is_dtensor(t) for t in leaves(sharded)),
+          "qwen3 train: the step did not return DTensors")
+    del sharded, opt
+    free()
+    plain_opt = adamw_init(params)
+    want = []
+    for i in range(MESH_TRAIN_STEPS):
+        loss, grads = steps._value_and_grad(model.loss, params,
+                                            stream.batch_at(i))
+        params, plain_opt, _ = adamw_update(AdamWConfig(), params, grads,
+                                            plain_opt)
+        want.append(float(loss))
+        del grads
+    check(all(abs(a - b) <= MESH_TRAIN_RTOL * abs(b)
+              for a, b in zip(got, want)),
+          f"qwen3 sharded train losses {got} != plain {want}")
+    tokens = MESH_TRAIN_B * MESH_TRAIN_SEQ
+    print(f"[multidevice] (a) build_step train, qwen3-1.7b {cfg.n_layers} of "
+          f"28 layers f32, {MESH_TRAIN_B} × {MESH_TRAIN_SEQ}: losses {got} "
+          f"(the plain update's {want}), s/step {step_s[0]:.3f} then "
+          f"{[round(x, 3) for x in step_s[1:]]} "
+          f"({tokens / min(step_s):.0f} tokens/s at best), peak "
+          f"{peak:.2f} GiB [{card}]")
+    del params, plain_opt, model
+    free()
+    print(f"[multidevice] (a) held launches: " + "; ".join(
+        f"{k}: {v:.3e}" for k, v in held.items()) + f"; build_step part "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return total
 
 
@@ -4367,7 +4655,8 @@ def phase_audio(card: str) -> dict:
     from repro_torch.kernels import attention, ref
     from repro_torch.launch import steps, train
     from repro_torch.models import build_model
-    from repro_torch.models.params import count_params, param_bytes
+    from repro_torch.models.params import (count_params, param_bytes,
+                                           tree_map)
 
     total = {"flash_attention": 0}
     held, keep = {}, {}
@@ -4590,7 +4879,10 @@ def phase_audio(card: str) -> dict:
         before = float(model_t.loss(model_t.init(
             torch.Generator("cuda").manual_seed(0), device="cuda"),
             first_batch))
-        after = float(model_t.loss(trained["params"], first_batch))
+        # The step's DTensors, by their local shards (the whole tensors
+        # on the driver's (1, 1) mesh).
+        after = float(model_t.loss(tree_map(steps.local, trained["params"]),
+                                   first_batch))
     print(f"[audio] train: the first batch's loss {before:.4f} (the "
           f"driver's step 0: {losses[0]:.4f}) → {after:.4f} with the "
           f"trained parameters [{card}]")
@@ -4684,17 +4976,25 @@ def main(argv: list[str]) -> int:
     stamp("10-11")
     launches["xty_folds_masked"] += phase_wholebrain(card)
     stamp("12")
-    phase_wholebrain_parity(card)
-    stamp("13")
-    launches["xty"] += phase_mor(card)
-    stamp("14")
-    phase_banded(card)
-    stamp("15")
-    phase_serving(card)
-    stamp("16")
-    t0 = time.perf_counter()
-    for k, v in phase_drivers(card).items():
-        launches[k] += v
+    # Phase 17's whole-brain driver runs beside phases 13–16 (its
+    # processes mostly start up); phase 17 collects and checks it.
+    wb = _start_wholebrain_driver(card)
+    wb["beside"] = ", beside phases 13–16 and 17(a), (c)"
+    try:
+        phase_wholebrain_parity(card)
+        stamp("13")
+        launches["xty"] += phase_mor(card)
+        stamp("14")
+        phase_banded(card)
+        stamp("15")
+        phase_serving(card)
+        stamp("16")
+        t0 = time.perf_counter()
+        for k, v in phase_drivers(card, wb).items():
+            launches[k] += v
+    finally:
+        _stop_driver(wb)
+        shutil.rmtree(wb["root"], ignore_errors=True)
     print(f"[done] phase 17 passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for k, v in phase_multidevice(card).items():

@@ -2,9 +2,10 @@
 
 A fit made by the JAX package, exported as numpy arrays, becomes the
 port's ``FoldStats`` or a fitted ``BrainEncoder`` here, a model's
-parameter tree becomes the port's parameters and a prefill's decode cache
-the port's cache, so both packages can be held to the same statistics,
-weights, forward and decode.
+parameter tree becomes the port's parameters (``shard_params`` places
+them on a device mesh) and a prefill's decode cache the port's cache, so
+both packages can be held to the same statistics, weights, forward and
+decode.
 """
 from __future__ import annotations
 
@@ -101,3 +102,17 @@ def cache_from_numpy(tree: dict, cfg: ModelConfig, *,
     return _tree_from_numpy(tree, build_model(cfg).cache_defs(1, 1),
                             resolve_device(device),
                             free_axes=("batch", "cache_seq"))
+
+
+def shard_params(params: dict, cfg: ModelConfig, mesh,
+                 rules: str = "tp") -> dict:
+    """A whole parameter tree (``model_params_from_numpy``'s, the same on
+    every rank) placed on ``mesh`` by the rule table ``rules``: a DTensor
+    per leaf, each rank keeping its block (``launch.steps``' shardings)."""
+    from repro_torch.launch import steps
+    from repro_torch.models.params import specs, tree_map
+
+    table = steps.rule_table(mesh, 0, rules)
+    sh = steps.named(mesh, specs(build_model(cfg).param_defs(), table,
+                                 mesh.shape))
+    return tree_map(lambda t, s: s.distribute(t), params, sh)

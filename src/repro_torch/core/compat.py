@@ -24,7 +24,12 @@ payloads included (a floating-point slot sum would turn ``-0.0`` into
 ``+0.0``).
 
 There is no in-process emulation of devices: ``make_mesh`` needs an
-initialised default process group whose world size is the mesh's size.
+initialised default process group with as many ranks as the mesh (all
+of them, or the ``devices=`` subset named).  ``init_world_of_one``
+makes the world of one process that a (1, 1) mesh runs in.  A mesh also
+exposes a ``torch.distributed.device_mesh.DeviceMesh`` over the same
+ranks and axis names (``Mesh.device_mesh``), the mesh its DTensors live
+on.
 Every collective runs under an ``obs`` span (``dist.psum``,
 ``dist.gather``) with its axis and bytes; under a tracer the span waits
 for the card before and after, so it times the collective alone.
@@ -112,6 +117,25 @@ def init_from_env(device: torch.device | str | None = None,
     return dev
 
 
+def init_world_of_one(device: torch.device | str | None = None
+                      ) -> torch.device:
+    """Join a default process group of this one process (rank 0 of 1,
+    over an in-process store: no address, no file), so a (1, 1) mesh can
+    be built without ``torch.distributed.run``.  NCCL for CUDA, gloo for
+    the CPU.  → the device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend="nccl" if dev.type == "cuda" else "gloo",
+        store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+    _TIMEOUT_S[0] = DEFAULT_TIMEOUT_S
+    return dev
+
+
 def shutdown() -> None:
     """Leave the default process group (a no-op without one)."""
     _MESHES.clear()
@@ -136,13 +160,20 @@ class Mesh:
     ``make_mesh``; ``device`` is where this rank's blocks live."""
 
     def __init__(self, shape: Sequence[int], names: Sequence[str],
-                 device: torch.device, timeout_s: float):
+                 device: torch.device, timeout_s: float,
+                 ranks: Sequence[int] | None = None):
         self.axis_names = tuple(names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.device = device
-        me = dist.get_rank()
         sizes = tuple(self.shape.values())
-        self.coords = dict(zip(self.axis_names, _unravel(me, sizes)))
+        # The world rank at each mesh position, row-major.
+        self.ranks = tuple(range(math.prod(sizes)) if ranks is None
+                           else (int(r) for r in ranks))
+        me = dist.get_rank()
+        self.member = me in self.ranks
+        self.coords = (dict(zip(self.axis_names, _unravel(
+            self.ranks.index(me), sizes))) if self.member else None)
+        self._device_mesh = None
         # new_group is collective over the whole world: every rank creates
         # every group, in this one order, and keeps the ones it is in.
         self._groups: dict[frozenset, object] = {}
@@ -161,11 +192,24 @@ class Mesh:
                             c[i] = v
                         for i, v in zip(axes, free):
                             c[i] = v
-                        ranks.append(_ravel(c, sizes))
+                        ranks.append(self.ranks[_ravel(c, sizes)])
                     group = dist.new_group(sorted(ranks), timeout=timeout)
                     if me in ranks:
                         key = frozenset(self.axis_names[i] for i in axes)
                         self._groups[key] = group
+
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` over this mesh's ranks and axis names, built
+        on first use (collective: every rank of the world asks for it in
+        the same order)."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            self._device_mesh = DeviceMesh(
+                self.device.type,
+                torch.tensor(self.ranks).reshape(tuple(self.shape.values())),
+                mesh_dim_names=self.axis_names)
+        return self._device_mesh
 
     @staticmethod
     def _axes(axis: Axis) -> tuple[str, ...]:
@@ -183,7 +227,12 @@ class Mesh:
             i = i * self.shape[a] + self.coords[a]
         return i
 
-    def _group(self, axis: Axis):
+    def group(self, axis: Axis):
+        """The process group of the ranks along ``axis`` that hold this
+        rank (a name or a tuple of names)."""
+        if not self.member:
+            raise RuntimeError(f"rank {dist.get_rank()} is not in this mesh "
+                               f"(ranks {self.ranks})")
         return self._groups[frozenset(self._axes(axis))]
 
     def psum(self, t: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -195,7 +244,7 @@ class Mesh:
         with obs.span("dist.psum", axis=str(axis),
                       bytes=t.numel() * t.element_size()):
             sync_if_traced(t.device)
-            dist.all_reduce(t, group=self._group(axis))
+            dist.all_reduce(t, group=self.group(axis))
             sync_if_traced(t.device)
         return t
 
@@ -215,7 +264,7 @@ class Mesh:
         with obs.span("dist.gather", axis=str(axis),
                       bytes=raw.numel() * raw.element_size()):
             sync_if_traced(t.device)
-            dist.all_reduce(raw, group=self._group(axis))
+            dist.all_reduce(raw, group=self.group(axis))
             sync_if_traced(t.device)
         return torch.cat(buf.unbind(0), dim=dim)
 
@@ -240,14 +289,21 @@ def _unravel(r: int, sizes: Sequence[int]) -> list[int]:
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
+              devices: Sequence[int] | None = None,
               device: torch.device | str | None = None) -> Mesh:
-    """A ``Mesh`` of the whole world, ranks laid out row-major.
+    """A ``Mesh`` of the whole world, ranks laid out row-major, or of the
+    ranks ``devices`` (the reference's device subset), laid out row-major
+    in the order given.
 
     Raises unless the default process group is initialised with a world
-    size equal to the product of ``axis_shapes``, and when the group's
-    backend is NCCL and ``device`` is not a CUDA device.  ``device``
-    defaults to the current CUDA device.  A mesh of the same shape, names
-    and device is built once per process group and reused."""
+    size equal to the product of ``axis_shapes`` (with ``devices``: unless
+    they are that many distinct ranks of the world), and when the group's
+    backend is NCCL and ``device`` is not a CUDA device.  Every rank of
+    the world builds the mesh (its groups are made collectively); a rank
+    outside ``devices`` holds one that it cannot run collectives on
+    (``Mesh.member`` is False).  ``device`` defaults to the current CUDA
+    device.  A mesh of the same shape, names, ranks and device is built
+    once per process group and reused."""
     if len(axis_shapes) != len(axis_names):
         raise ValueError(f"mesh shape {tuple(axis_shapes)} and names "
                          f"{tuple(axis_names)} differ in length")
@@ -259,22 +315,31 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
             f"ranks with python -m torch.distributed.run and call "
             f"compat.init_from_env()")
     world = dist.get_world_size()
-    if world != want:
+    if devices is None and world != want:
         raise ValueError(
             f"a {tuple(axis_shapes)} mesh over axes {tuple(axis_names)} "
             f"needs a world of exactly {want} ranks, this one has {world}")
+    if devices is not None:
+        devices = tuple(int(r) for r in devices)
+        if len(devices) != want or len(set(devices)) != want or \
+                not all(0 <= r < world for r in devices):
+            raise ValueError(
+                f"a {tuple(axis_shapes)} mesh needs {want} distinct ranks "
+                f"of the world of {world}, got devices={devices}")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if dist.get_backend() == "nccl" and dev.type != "cuda":
         raise ValueError(f"the nccl backend runs on CUDA devices only, not "
                          f"{dev}")
-    key = (tuple(int(s) for s in axis_shapes), tuple(axis_names), str(dev))
+    key = (tuple(int(s) for s in axis_shapes), tuple(axis_names), devices,
+           str(dev))
     if key not in _MESHES:
-        _MESHES[key] = Mesh(axis_shapes, axis_names, dev, _TIMEOUT_S[0])
+        _MESHES[key] = Mesh(axis_shapes, axis_names, dev, _TIMEOUT_S[0],
+                            ranks=devices)
     return _MESHES[key]
 
 
 __all__ = ["DEFAULT_TIMEOUT_S", "Mesh", "barrier", "device_count",
-           "init_from_env", "is_initialized", "make_mesh", "rank",
-           "shutdown"]
+           "init_from_env", "init_world_of_one", "is_initialized",
+           "make_mesh", "rank", "shutdown"]

@@ -1,22 +1,23 @@
 """Roofline placement of an out-of-core ridge-CV fit (paper §3 terms).
 
-Port of ``encoding_roofline`` (``repro/launch/roofline_report.py``) and of
-the ``roofline_terms`` it calls (``repro/launch/hlo_analysis.py``), which
-the whole-brain driver's ``ab`` phase reports.  The reference's CPU
+Port of ``encoding_roofline`` (``repro/launch/roofline_report.py``), which
+the whole-brain driver's ``ab`` phase reports; its terms come from
+``hlo_analysis.roofline_terms``, as the reference's do.  The reference's CPU
 envelope stays the default; ``H100_PEAK_FLOPS``/``H100_MEM_BW`` are the
 data-sheet peaks of the H100 SXM part at its 700 W limit (67 TFLOP/s f32
 outside the tensor cores, 3.35 TB/s of HBM3), which a driver passes when
 it runs on a CUDA card.  ``H100_NVLINK_BW`` is the same data sheet's
 NVLink figure (900 GB/s per card, the sum over its 18 links in both
-directions), the collective term's default link rate: a data-sheet
-number, not a measurement.
+directions): a data-sheet number, not a measurement.
 
-The rest of the reference module — the dry-run roofline table and
-``predict_roofline``'s bench callers — is ROADMAP queue 1 item 12.
+The rest of the reference module (the dry-run roofline table,
+``predict_roofline``) comes with the port's dry run (ROADMAP queue 1
+item 12 (3), steps 6–7).
 """
 from __future__ import annotations
 
 from repro_torch.core.complexity import RidgeWorkload, t_m, t_w, t_w_folded
+from repro_torch.launch.hlo_analysis import roofline_terms
 
 # Conservative single-socket CPU envelope for the out-of-core ridge bench
 # (one core, f32 FMA): ~50 GFLOP/s compute, ~20 GB/s sustained DRAM/disk
@@ -29,25 +30,6 @@ H100_PEAK_FLOPS = 67e12
 H100_MEM_BW = 3.35e12
 # NVIDIA H100 SXM data sheet: NVLink bandwidth per card.
 H100_NVLINK_BW = 900e9
-
-
-def roofline_terms(flops: float, nbytes: float, coll_bytes: float = 0.0, *,
-                   peak_flops: float, mem_bw: float,
-                   link_bw: float = H100_NVLINK_BW) -> dict:
-    """The three roofline terms (seconds) and the largest one.
-
-    All inputs are per device: ``coll_bytes`` are the bytes this device's
-    collectives move (an ``all_reduce``'s operand, a gather's buffer),
-    over ``link_bw`` — the reference's ``ici_bw · ici_links`` over the
-    TPU's inter-chip links, NVLink here.  One device moves none, and the
-    collective term is then 0."""
-    t_compute = flops / peak_flops
-    t_memory = nbytes / mem_bw
-    t_collective = coll_bytes / link_bw
-    dom = max(("compute", t_compute), ("memory", t_memory),
-              ("collective", t_collective), key=lambda kv: kv[1])
-    return {"t_compute_s": t_compute, "t_memory_s": t_memory,
-            "t_collective_s": t_collective, "bottleneck": dom[0]}
 
 
 def encoding_roofline(n: int, p: int, t: int, *, r: int = 11,
@@ -78,7 +60,7 @@ def encoding_roofline(n: int, p: int, t: int, *, r: int = 11,
     # One fit on one device moves no collective bytes: the compute and
     # memory terms and the larger of the two, as the reference reports.
     terms = roofline_terms(flops, nbytes, 0.0, peak_flops=peak_flops,
-                           mem_bw=mem_bw)
+                           hbm_bw=mem_bw)
     out.update(t_compute_s=terms["t_compute_s"],
                t_memory_s=terms["t_memory_s"],
                bottleneck=("compute" if terms["t_compute_s"]
@@ -90,4 +72,4 @@ def encoding_roofline(n: int, p: int, t: int, *, r: int = 11,
 
 
 __all__ = ["CPU_MEM_BW", "CPU_PEAK_FLOPS", "H100_MEM_BW", "H100_NVLINK_BW",
-           "H100_PEAK_FLOPS", "encoding_roofline", "roofline_terms"]
+           "H100_PEAK_FLOPS", "encoding_roofline"]

@@ -103,6 +103,15 @@ class ModelConfig:
     def n_repeats(self) -> int:
         return self.n_layers // len(self.pattern)
 
+    def with_sliding_windows(self, window: int = 4096) -> "ModelConfig":
+        """long_500k override: every attention layer becomes sliding-window
+        so the KV cache is bounded."""
+        new_pattern = tuple(
+            "local_attn" if k == "global_attn" else k for k in self.pattern)
+        return dataclasses.replace(self, pattern=new_pattern,
+                                   window=min(self.window, window),
+                                   shared_attn_window=window)
+
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:

@@ -21,7 +21,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (ParamDef, init as init_params,
                                        stack_layers, tree_map, zeros)
@@ -209,9 +209,15 @@ class EncDecLM:
                 tokens = torch.zeros((b, 1), dtype=torch.int32,
                                      device=enc_out.device)
             seq_len = batch.get("decode_len", tokens.shape[1])
-            cache = {"self": zeros(self.cache_defs(b, seq_len, 1)["self"],
-                                   device=enc_out.device),
-                     "cross_k": cross_k, "cross_v": cross_v}
+            defs = self.cache_defs(spmd.global_batch(b), seq_len, cross_len)
+            # In a sharded step: this rank's block of each cache leaf.
+            cross = spmd.place_tree({"cross_k": cross_k, "cross_v": cross_v},
+                                    {k: defs[k] for k in ("cross_k",
+                                                          "cross_v")})
+            spmd.note_cache(defs)
+            cache = {"self": tree_map(
+                lambda d: spmd.local_zeros(d, enc_out.device), defs["self"]),
+                **cross}
             return self.decode_step(params, cache, tokens[:, :1], 0)
 
     def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor,
@@ -228,7 +234,8 @@ class EncDecLM:
                 a, _ = layers.attention_decode(
                     p["self_attn"], cfg, _self_variant(cfg),
                     layers.rmsnorm(p["norm1"], h, cfg.norm_eps), pos,
-                    {"k": sc["k"][i], "v": sc["v"][i]})
+                    {"k": sc["k"][i], "v": sc["v"][i]},
+                    spmd.seq_axes("self"))
                 h = h + a
                 # Cross-attention: dense softmax over every encoder frame.
                 x_in = layers.rmsnorm(p["norm_x"], h, cfg.norm_eps)
@@ -238,12 +245,10 @@ class EncDecLM:
                     q = layers.rmsnorm(p["cross_attn"]["q_norm"], q,
                                        cfg.norm_eps)
                 q = q * (hd ** -0.5)
-                scores = layers._gqa_scores(q, cache["cross_k"][i],
-                                            cfg.n_kv_heads)
-                probs = torch.softmax(scores, dim=-1)
-                out = layers._gqa_out(probs, cache["cross_v"][i])
-                h = h + torch.einsum("bshk,hkd->bsd", out,
-                                     p["cross_attn"]["wo"])
+                out = layers.decode_attend(
+                    cfg, q, cache["cross_k"][i], cache["cross_v"][i], None,
+                    None, spmd.seq_axes("cross_k"))
+                h = h + layers._out_proj(p["cross_attn"], cfg, out)
                 h = h + layers.mlp(p["mlp"], cfg,
                                    layers.rmsnorm(p["norm2"], h,
                                                   cfg.norm_eps))

@@ -22,7 +22,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, spmd, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (init as init_params, stack_layers,
                                        tree_map, zeros)
@@ -57,10 +57,10 @@ def _shared_block_train(p, cfg, h, positions):
     return h + f, (k, v)
 
 
-def _shared_block_decode(p, cfg, h, pos, cache):
+def _shared_block_decode(p, cfg, h, pos, cache, seq=()):
     a, _ = layers.attention_decode(
         p["attn"], cfg, _shared_variant(cfg),
-        layers.rmsnorm(p["norm1"], h, cfg.norm_eps), pos, cache)
+        layers.rmsnorm(p["norm1"], h, cfg.norm_eps), pos, cache, seq)
     h = h + a
     return h + layers.mlp(p["mlp"], cfg,
                           layers.rmsnorm(p["norm2"], h, cfg.norm_eps))
@@ -121,7 +121,10 @@ class HybridLM:
         b, s, _ = h.shape
         positions = layers.positions(b, s, h.device)
         shared = params.get("shared")
-        cache = self.init_cache(b, s, device=h.device) if keep_cache else None
+        # Each leaf allocated at its first write, with the shape computed
+        # (this rank's heads in a sharded step).
+        cache = {k: {} for k in self.cache_defs(1, s)} if keep_cache \
+            else None
         C = self._shared_len(s)
 
         def body(hh, blks, r):
@@ -147,12 +150,18 @@ class HybridLM:
                         slot = cache["shared"]
                 if keep_cache:
                     for name, t in new.items():
+                        if name not in slot:
+                            slot[name] = t.new_empty((cfg.n_repeats,
+                                                      *t.shape))
                         slot[name][r] = t
             return hh
 
         step = remat(body) if self.remat and not keep_cache else body
         for r in range(cfg.n_repeats):
             h = step(h, tree_map(lambda a: a[r], params["blocks"]), r)
+        if keep_cache:
+            cache = spmd.place_tree(cache, self.cache_defs(
+                spmd.global_batch(b), s))
         return layers.rmsnorm(params["final_norm"], h, cfg.norm_eps), cache
 
     def hidden_states(self, params: Params, batch: dict) -> torch.Tensor:
@@ -210,6 +219,7 @@ class HybridLM:
                         c = cache["shared"]
                         h = _shared_block_decode(
                             shared, cfg, h, pos,
-                            {"k": c["k"][r], "v": c["v"][r]})
+                            {"k": c["k"][r], "v": c["v"][r]},
+                            spmd.seq_axes("shared"))
             h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
             return layers.unembed(params["embed"], cfg, h), cache

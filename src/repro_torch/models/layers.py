@@ -14,6 +14,10 @@ Attention runs one of three paths, on the reference's switches:
 over the plain block loop (``_blockwise_attention``); otherwise the scores
 are materialised.  ``attention_decode`` attends one token against a ring
 KV cache that it updates in place.
+
+Inside a sharded step (``models.spmd``) the blocks run on this rank's
+shards: the head, KV-head, hidden and vocab counts come from the
+parameters' shapes, and ``spmd``'s operators sum the ranks' parts.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
@@ -110,19 +115,56 @@ class AttnVariant:
     use_rope: bool = True                # False for cross-attention
 
 
+def _split(p: Params, cfg: ModelConfig) -> tuple[bool, bool]:
+    """Whether this rank holds a block of the query heads, and of the KV
+    heads (K/V stay whole when their count does not divide the axis)."""
+    return (spmd.partial(p["wq"].shape[1], cfg.n_heads),
+            spmd.partial(p["wk"].shape[1], cfg.n_kv_heads))
+
+
+def _whole(p: Params, split: bool) -> Params:
+    """A replicated parameter subtree read by this rank's heads only."""
+    return {k: spmd.to_model(v) for k, v in p.items()} if split else p
+
+
 def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
-         positions: torch.Tensor, use_rope: bool = True):
+         positions: torch.Tensor, use_rope: bool = True,
+         kv_x: torch.Tensor | None = None,
+         kv_positions: torch.Tensor | None = None):
+    """→ (q pre-scaled, k, v), on this rank's heads.  ``kv_x`` projects
+    K/V from another sequence (cross-attention), at ``kv_positions``."""
     hd = cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", x, p["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, p["wv"])
+    heads_split, kv_split = _split(p, cfg)
+    xq = spmd.to_model(x) if heads_split else x
+    if kv_x is None:
+        src = xq if kv_split else x
+    else:
+        src = spmd.to_model(kv_x) if kv_split else kv_x
+    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
+    k = torch.einsum("bsd,dnk->bsnk", src, p["wk"])
+    v = torch.einsum("bsd,dnk->bsnk", src, p["wv"])
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        # A whole norm scale applied to this rank's heads only: its
+        # gradient sums the ranks'.
+        q = rmsnorm(_whole(p["q_norm"], heads_split), q, cfg.norm_eps)
+        k = rmsnorm(_whole(p["k_norm"], kv_split), k, cfg.norm_eps)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_x is None else kv_positions,
+                 cfg.rope_theta)
+    if heads_split and not kv_split:
+        # Whole K/V read by this rank's query heads only.
+        k, v = spmd.to_model(k), spmd.to_model(v)
     return q * (hd ** -0.5), k, v
+
+
+def _out_proj(p: Params, cfg: ModelConfig, out: torch.Tensor
+              ) -> torch.Tensor:
+    """(B,S,H,K) → (B,S,d) through ``wo``; summed over the ranks' heads."""
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if spmd.partial(p["wo"].shape[0], cfg.n_heads):
+        y = spmd.from_model(y)
+    return y
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -153,7 +195,7 @@ def _blockwise_attention(cfg: ModelConfig, var: AttnVariant, q: torch.Tensor,
     per Q block.  q: (B,S,H,K) pre-scaled; k/v: (B,T,N,K).  → (B,S,H,K).
     """
     B, S, H, K = q.shape
-    T, N = k.shape[1], cfg.n_kv_heads
+    T, N = k.shape[1], k.shape[2]
     G = H // N
     bs = cfg.flash_block
     qb, kb = min(bs, S), min(bs, T)
@@ -212,25 +254,13 @@ def attention(p: Params, cfg: ModelConfig, var: AttnVariant, x: torch.Tensor,
     both lengths divide by ``cfg.flash_block``.
     """
     if kv_x is None:
-        q, k, v = _qkv(p, cfg, x, positions, use_rope=var.use_rope)
         kv_pos = positions
     else:
-        hd = cfg.resolved_head_dim
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-        if cfg.qk_norm:
-            q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        if var.use_rope:
-            q = rope(q, positions, cfg.rope_theta)
-        q = q * (hd ** -0.5)
-        k = torch.einsum("bsd,dnk->bsnk", kv_x, p["wk"])
-        v = torch.einsum("bsd,dnk->bsnk", kv_x, p["wv"])
-        if cfg.qk_norm:
-            k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
         kv_pos = kv_positions if kv_positions is not None else \
             torch.arange(kv_x.shape[1], dtype=torch.int32,
                          device=kv_x.device)[None].expand(kv_x.shape[:2])
-        if var.use_rope:
-            k = rope(k, kv_pos, cfg.rope_theta)
+    q, k, v = _qkv(p, cfg, x, positions, use_rope=var.use_rope, kv_x=kv_x,
+                   kv_positions=kv_pos)
     return attend(p, cfg, var, q, k, v, positions, kv_pos)
 
 
@@ -240,6 +270,8 @@ def attend(p: Params, cfg: ModelConfig, var: AttnVariant, q: torch.Tensor,
     """``attention`` after the projections: q (B,S,H,K) pre-scaled, k/v
     (B,T,N,K) → the output projection (B,S,d).  The prefill calls it on
     the k/v it also keeps as the cache."""
+    k, v = spmd.local_kv(k, v, q.shape[2], cfg.n_heads,
+                         cfg.n_kv_heads)
     if cfg.flash_threshold is not None and \
             q.shape[1] >= cfg.flash_threshold and \
             q.shape[1] % cfg.flash_block == 0 and \
@@ -248,13 +280,13 @@ def attend(p: Params, cfg: ModelConfig, var: AttnVariant, q: torch.Tensor,
             # The kernel tiles the sequence itself; flash_block only
             # gates this path, as in the reference.
             out = kernel_ops.mha_flash(
-                q, k, v, cfg.n_kv_heads, causal=var.causal,
+                q, k, v, k.shape[2], causal=var.causal,
                 window=var.window, softcap=var.softcap)
         else:
             out = _blockwise_attention(cfg, var, q, k, v, positions, kv_pos)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return _out_proj(p, cfg, out)
 
-    scores = _gqa_scores(q, k, cfg.n_kv_heads)       # (B,N,G,S,T)
+    scores = _gqa_scores(q, k, k.shape[2])           # (B,N,G,S,T)
     scores = _softcap(scores, var.softcap)
     dist = positions[:, None, None, :, None] - kv_pos[:, None, None, None, :]
     mask = torch.ones_like(dist, dtype=torch.bool)
@@ -265,7 +297,7 @@ def attend(p: Params, cfg: ModelConfig, var: AttnVariant, q: torch.Tensor,
     scores = torch.where(mask, scores, NEG)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _out_proj(p, cfg, out)
 
 
 # -- cached decode -----------------------------------------------------------
@@ -291,9 +323,49 @@ def ring_cache(x: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.roll(x[:, -cache_len:], s % cache_len, dims=1)
 
 
+def decode_attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, valid: torch.Tensor | None,
+                  softcap: float | None, seq: tuple = ()) -> torch.Tensor:
+    """One query position against cached K/V: q (B,1,Hq,K) pre-scaled,
+    k/v (B,C,N,K), ``valid`` (C,) over the slots (None: every slot) →
+    (B,1,Hq,K).
+
+    ``seq`` names the mesh axes that split the cache's slots: each rank
+    then scores its slots and the softmax is combined over those axes
+    (flash-decode: the max, the sum of exponentials and the weighted
+    values, each reduced over the axes)."""
+    n_heads = cfg.n_heads
+    hq = q.shape[2]
+    gathered = bool(seq) and "model" in seq and hq < n_heads
+    if gathered:
+        # The slots are split on ``model``: every query head meets them.
+        q = spmd.gather_model(q, 2)
+    k, v = spmd.local_kv(k, v, q.shape[2], n_heads, cfg.n_kv_heads)
+    scores = _gqa_scores(q, k, k.shape[2])           # (B,N,G,1,C)
+    scores = _softcap(scores, softcap)
+    if valid is not None:
+        scores = torch.where(valid, scores, NEG)
+    if not seq:
+        out = _gqa_out(torch.softmax(scores, dim=-1), v)
+    else:
+        m = spmd.psum(scores.amax(dim=-1, keepdim=True), seq,
+                      op=torch.distributed.ReduceOp.MAX)
+        e = torch.exp(scores - m)
+        den = spmd.psum(e.sum(dim=-1), seq)          # (B,N,G,1)
+        b, n, g, s, _ = e.shape
+        num = spmd.psum(torch.einsum("bngst,btnk->bsngk", e, v.float()),
+                        seq)
+        out = (num / den.permute(0, 3, 1, 2)[..., None]).reshape(
+            b, s, n * g, v.shape[-1]).to(v.dtype)
+    if gathered:
+        h0, _ = spmd.model_block(n_heads)
+        out = out[:, :, h0:h0 + hq]
+    return out
+
+
 def attention_decode(p: Params, cfg: ModelConfig, var: AttnVariant,
-                     x: torch.Tensor, pos: int | torch.Tensor, cache: dict
-                     ) -> tuple[torch.Tensor, dict]:
+                     x: torch.Tensor, pos: int | torch.Tensor, cache: dict,
+                     seq: tuple = ()) -> tuple[torch.Tensor, dict]:
     """One-token decode against a (possibly ring) KV cache.
 
     x: (B, 1, d); pos: the current absolute position (a Python int or a
@@ -302,28 +374,39 @@ def attention_decode(p: Params, cfg: ModelConfig, var: AttnVariant,
     the cache's tensors (views into a stacked cache write through), which
     are returned.  Keys are stored RoPE-rotated at their absolute write
     position, so ring wraparound keeps relative phases exact.
+
+    ``seq`` names the mesh axes that split the cache's slots in a sharded
+    step: this rank holds slots [i·C/n, (i+1)·C/n) and writes the new
+    entry only where the slot falls in them.
     """
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, pos.expand(b, 1))
-    C = cache["k"].shape[1]
-    slot = (pos % C).reshape(1)
     k, v = cache["k"], cache["v"]
+    if k_new.shape[2] < k.shape[2]:
+        # The cache keeps every KV head (its slots are split instead).
+        k_new, v_new = spmd.gather_model(k_new, 2), spmd.gather_model(
+            v_new, 2)
+    c_loc = k.shape[1]
+    C = c_loc * spmd.size_of(seq)
+    first = spmd.index_of(seq) * c_loc
+    slot = (pos % C - first).reshape(1)
+    if seq:
+        # Only the rank that holds the slot changes it.
+        mine = (slot >= 0) & (slot < c_loc)
+        slot = slot.clamp(0, c_loc - 1)
+        k_new = torch.where(mine, k_new.to(k.dtype), k.index_select(1, slot))
+        v_new = torch.where(mine, v_new.to(v.dtype), v.index_select(1, slot))
     k.index_copy_(1, slot, k_new.to(k.dtype))
     v.index_copy_(1, slot, v_new.to(v.dtype))
-    scores = _gqa_scores(q, k, cfg.n_kv_heads)       # (B,N,G,1,C)
-    scores = _softcap(scores, var.softcap)
     # Slot j holds absolute position pos - ((pos - j) mod C); valid iff ≥ 0.
-    j = torch.arange(C, dtype=torch.int64, device=x.device)
+    j = first + torch.arange(c_loc, dtype=torch.int64, device=x.device)
     age = (pos - j) % C                      # distance to the current token
     valid = age <= pos
     if var.window is not None:
         valid &= age < var.window
-    scores = torch.where(valid, scores, NEG)
-    probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, {"k": k, "v": v}
+    out = decode_attend(cfg, q, k, v, valid, var.softcap, seq)
+    return _out_proj(p, cfg, out), {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +428,9 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    split = spmd.partial(p["wo"].shape[0], cfg.d_ff)
+    if split:
+        x = spmd.to_model(x)
     if cfg.mlp_act in ("swiglu", "geglu"):
         h = torch.einsum("bsd,dcf->bscf", x, p["wi"])
         gate, up = h[..., 0, :], h[..., 1, :]
@@ -354,7 +440,8 @@ def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wi"]),
                    approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    y = torch.einsum("bsf,fd->bsd", h, p["wo"])
+    return spmd.from_model(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -372,13 +459,17 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["tok"][tokens]
+    x = spmd.vocab_lookup(p["tok"], tokens, cfg.vocab)
     if cfg.scale_embedding:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
 def unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states (B, S, d) → f32 logits (B, S, V), softcapped."""
+    """Hidden states (B, S, d) → f32 logits (B, S, V), softcapped; in a
+    sharded step, this rank's block of the vocab when the table's vocab
+    rows are split."""
     w = p["tok"].float().T if cfg.tie_embeddings else p["out"].float()
+    if spmd.partial(w.shape[1], cfg.vocab):
+        x = spmd.to_model(x)
     return _softcap(x.float() @ w, cfg.final_logit_softcap)

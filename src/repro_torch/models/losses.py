@@ -6,12 +6,17 @@ from the hidden states and the label tokens' embedding rows (one
 logits feed only the logsumexp.  With ``ce_vocab_chunks > 1`` the
 logsumexp runs over vocab chunks, each recomputed in the backward pass
 (``scanning.remat``), so only one chunk's f32 logits are live.
+
+In a sharded step whose embedding splits the vocab over ``model``, each
+rank takes the logsumexp of its vocab block and the blocks are combined
+(the max over the ranks, then the sum of the rescaled exponentials), and
+the label logit sums the ranks' rows (``spmd.vocab_lookup``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.scanning import remat
 
@@ -44,7 +49,17 @@ def _chunked_lse(embed_params, cfg: ModelConfig,
     s = torch.zeros((b, t), dtype=torch.float32, device=h_pred.device)
     for e_chunk in E.reshape(C, V // C, E.shape[1]):
         m, s = step(m, s, h_pred, e_chunk, cfg.final_logit_softcap)
-    return m + torch.log(s)
+    return _combine(m, s, V, cfg.vocab)
+
+
+def _combine(m: torch.Tensor, s: torch.Tensor, v_local: int,
+             vocab: int) -> torch.Tensor:
+    """logsumexp from this rank's (max, Σ exp(· − max)) over its vocab
+    block, combined over the ranks when the vocab is split."""
+    if not spmd.partial(v_local, vocab):
+        return m + torch.log(s)
+    top = spmd.max_model(m)
+    return top + torch.log(spmd.from_model(s * torch.exp(m - top)))
 
 
 def next_token_nll(embed_params, cfg: ModelConfig, h: torch.Tensor,
@@ -53,17 +68,23 @@ def next_token_nll(embed_params, cfg: ModelConfig, h: torch.Tensor,
     ``tokens`` (B, S) → f32 scalar."""
     h_pred = h[:, :-1, :]
     tgt = tokens[:, 1:].long()
+    E = embed_params["tok"] if cfg.tie_embeddings else \
+        embed_params["out"].T
     if cfg.ce_vocab_chunks > 1:
-        lse = _chunked_lse(embed_params, cfg, h_pred)
+        h_in = spmd.to_model(h_pred) if spmd.partial(E.shape[0],
+                                                     cfg.vocab) else h_pred
+        lse = _chunked_lse(embed_params, cfg, h_in)
     else:
         # Full f32 logits feed only the logsumexp reduction.
-        lse = torch.logsumexp(layers.unembed(embed_params, cfg, h_pred),
-                              dim=-1)
+        logits = layers.unembed(embed_params, cfg, h_pred)
+        if spmd.partial(logits.shape[-1], cfg.vocab):
+            m = logits.amax(dim=-1).detach()
+            lse = _combine(m, torch.exp(logits - m[..., None]).sum(-1),
+                           logits.shape[-1], cfg.vocab)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
     # Label logit from the embedding rows: no (B, S, V) gather.
-    if cfg.tie_embeddings:
-        e = embed_params["tok"][tgt]                     # (B, S-1, d)
-    else:
-        e = embed_params["out"].T[tgt]
+    e = spmd.vocab_lookup(E, tgt, cfg.vocab)             # (B, S-1, d)
     lbl = torch.einsum("bsd,bsd->bs", h_pred.float(), e.float())
     lbl = layers._softcap(lbl, cfg.final_logit_softcap)
     return torch.mean(lse - lbl)

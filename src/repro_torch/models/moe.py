@@ -10,12 +10,18 @@ group axis ``n`` instead.  The router, the dispatch and the combine run in
 f32, as the reference's do.
 
 Used by phi3.5-moe (16e top-2) and grok-1 (8e top-2).
+
+In a sharded step every rank routes every token (the router is whole)
+and computes its own experts (or, when the expert count does not divide
+the ``model`` axis, its block of every expert's hidden units); the
+ranks' outputs are summed (``models.spmd``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
@@ -60,11 +66,22 @@ def _dispatch_groups(p, cfg: ModelConfig, x: torch.Tensor
     combine = torch.einsum("ngk,ngkec->ngec", gate_vals, dispatch)
     disp = dispatch.sum(dim=2)                                   # (n, G, E, C)
 
-    xin = torch.einsum("ngec,ngd->necd", disp, x.float()).to(x.dtype)
+    e_loc, f_loc = p["wi"].shape[0], p["wi"].shape[-1]
+    split = spmd.partial(e_loc, E) or spmd.partial(f_loc, cfg.d_ff)
+    xe = x
+    if split:
+        # Whole routing, read by this rank's experts (or hidden units).
+        xe, combine = spmd.to_model(x), spmd.to_model(combine)
+        if e_loc < E:
+            e0, e1 = spmd.model_block(E)
+            disp, combine = disp[:, :, e0:e1], combine[:, :, e0:e1]
+    xin = torch.einsum("ngec,ngd->necd", disp, xe.float()).to(x.dtype)
     h = torch.einsum("necd,edgf->necgf", xin, p["wi"])           # (n,E,C,2,f)
     h = F.silu(h[..., 0, :]) * h[..., 1, :]
     eout = torch.einsum("necf,efd->necd", h, p["wo"])            # (n, E, C, d)
     out = torch.einsum("ngec,necd->ngd", combine, eout.float())
+    if split:
+        out = spmd.from_model(out)
 
     # Switch-style load-balance auxiliary loss.
     frac_tokens = sel.sum(dim=2).mean(dim=1)                     # (n, E)
@@ -76,12 +93,20 @@ def _dispatch_groups(p, cfg: ModelConfig, x: torch.Tensor
 def moe_apply(p, cfg: ModelConfig, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (out, aux loss).  Tokens regrouped to ``group_size``
-    (every token in one group when there are fewer)."""
+    (every token in one group when there are fewer).
+
+    The groups are those of the whole batch.  In a sharded step whose
+    data ranks' tokens do not split into whole groups, the batch is
+    gathered over the data axes for the layer and each rank keeps its
+    rows of the output."""
     b, s, d = x.shape
-    tokens = b * s
+    tokens = spmd.global_batch(b) * s
     g = min(cfg.moe.group_size, tokens)
     if tokens % g:
         raise ValueError(f"{tokens} tokens do not split into MoE groups of "
                          f"{g}")
-    out, aux = _dispatch_groups(p, cfg, x.reshape(tokens // g, g, d))
-    return out.reshape(b, s, d), aux.mean()
+    spans = (b * s) % g != 0               # a group spans data ranks
+    xs = spmd.data_gather(x) if spans else x
+    out, aux = _dispatch_groups(p, cfg, xs.reshape(-1, g, d))
+    out = out.reshape(xs.shape)
+    return (spmd.data_block(out) if spans else out), aux.mean()

@@ -1,13 +1,21 @@
-"""Parameter definition trees: one source of truth for shapes, dtypes and
-initialisers.
+"""Parameter definition trees: one source of truth for shapes, dtypes,
+logical sharding axes and initialisers.
 
-Port of ``repro/models/params.py`` (``ParamDef``, ``init``,
-``count_params``, ``param_bytes``, ``stack_layers``), plus ``zeros`` for
-the decode caches.  A model's ``param_defs()`` is a nested dict with
-``ParamDef`` leaves; ``init`` materialises it with draws from an explicit
-``torch.Generator`` on the generator's device.  The logical axis
-names are kept for the sharding rules, which come with the multi-device
-slice.
+Port of ``repro/models/params.py``, plus ``zeros`` for the decode caches.
+A model's ``param_defs()`` is a nested dict with ``ParamDef`` leaves.
+From that one tree come:
+
+* ``abstract(tree)``  → ``meta``-device tensors of the same shapes and
+  dtypes, which allocate nothing;
+* ``init(tree, generator)`` → materialised parameters, drawn from an
+  explicit ``torch.Generator`` on the generator's device;
+* ``specs(tree, rules, axis_sizes)`` → a spec per leaf: a tuple with one
+  entry per dimension, ``None``, a mesh axis name or a tuple of names,
+  as the reference's ``PartitionSpec`` holds it.  ``launch.steps`` turns
+  specs into DTensor placements.
+
+Logical axis names are mapped to mesh axes by a rule table (``RULES``),
+so switching the sharding strategy is a change of table, not of model.
 """
 from __future__ import annotations
 
@@ -18,6 +26,43 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device
+
+# Logical axes used by the model zoo.
+#   embed   — d_model dimension
+#   mlp     — FFN hidden dimension
+#   heads   — attention query heads (sharded over tensor axis)
+#   kv      — KV heads
+#   vocab   — vocabulary dimension
+#   expert  — MoE expert dimension
+#   state   — SSM state dimension
+#   layer   — stacked layer dimension, never sharded
+#   None    — replicated
+
+# Rule tables: logical axis → mesh axis (or None).
+RULES = {
+    # Paper-faithful baseline: tensor parallel over "model", batch over
+    # "data" (+"pod"); weights replicated over data.
+    "tp": {
+        "embed": None, "mlp": "model", "heads": "model", "kv": "model",
+        "vocab": "model", "expert": "model", "state": None, "layer": None,
+        "conv": None, "dt": None, "batch": None, "cache_seq": None,
+    },
+    # FSDP variant: the weights' embed dim also sharded over data.
+    "tp_fsdp": {
+        "embed": "data", "mlp": "model", "heads": "model", "kv": "model",
+        "vocab": "model", "expert": "model", "state": None, "layer": None,
+        "conv": None, "dt": None, "batch": None, "cache_seq": None,
+    },
+    # Decode variant: the KV cache's sequence dim sharded over the model
+    # axis, for archs whose KV head count leaves the tensor axis idle.
+    "tp_cacheseq": {
+        "embed": None, "mlp": "model", "heads": "model", "kv": "model",
+        "vocab": "model", "expert": "model", "state": None, "layer": None,
+        "conv": None, "dt": None, "batch": None, "cache_seq": "model",
+    },
+}
+
+Spec = tuple  # per dimension: None, an axis name or a tuple of names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +81,10 @@ class ParamDef:
                              f"in rank")
 
 
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of a nested dict (keys in sorted order, as
     ``jax.tree_util`` orders them), and over the matching leaves of the
@@ -50,6 +99,47 @@ def leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def abstract(tree) -> dict:
+    """``meta``-device tensors of every leaf's shape and dtype: the inputs
+    a step is described by, with no storage allocated."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), tree)
+
+
+def specs(tree, rules: dict | str = "tp",
+          axis_sizes: dict[str, int] | None = None) -> dict:
+    """A spec tree from the logical-axis rule table.
+
+    ``axis_sizes`` (mesh axis → size) enables divisibility checking: a
+    logical axis whose dimension its mesh axes do not divide is left
+    replicated (e.g. 2 KV heads on a 4-wide model axis, or a vocab that
+    is not a multiple of 16).  A mesh axis is used once per spec, and the
+    first logical axis wins (MoE weights (expert, embed, ·, mlp):
+    "expert" takes the model axis, so the per-expert mlp dim stays
+    unsharded).
+    """
+    table = RULES[rules] if isinstance(rules, str) else rules
+
+    def one(d: ParamDef) -> Spec:
+        out = []
+        used: set = set()
+        for dim, a in zip(d.shape, d.axes):
+            m = table.get(a, None) if a else None
+            flat = m if isinstance(m, tuple) else (m,)
+            if m is not None and any(f in used for f in flat):
+                m = None
+            if m is not None and axis_sizes is not None:
+                if dim % math.prod(axis_sizes.get(f, 1) for f in flat):
+                    m = None
+            if m is not None:
+                used.update(f for f in flat if f)
+            # One axis in a tuple is that axis, as PartitionSpec holds it.
+            out.append(m[0] if isinstance(m, tuple) and len(m) == 1 else m)
+        return tuple(out)
+
+    return tree_map(one, tree)
 
 
 def _std(d: ParamDef) -> float:

@@ -13,6 +13,13 @@ the single-step recurrence on that state: ``h ← exp(ΔA)·h + (ΔB)⊗x``,
 Every three-operand product of the reference is contracted here in an
 order that never builds a (…, Q, H, N, P) tensor: at zamba2-2.7b's full
 width (B=8, S=4096, H=80, N=P=64) that tensor would take 43 GB.
+
+In a sharded step a rank holds a block of the heads (``wx``, ``wz``,
+``wdt``, the per-head vectors, ``norm``, ``wo``) and the whole B/C
+projections and conv weights: it convolves its heads' x channels and the
+whole B/C channels, runs the SSD on its heads, and the ranks' output
+projections are summed.  The decode cache's conv channels stay whole, so
+its x channels are gathered over ``model`` (``models.spmd``).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig, SSMConfig
 from repro_torch.models.params import ParamDef
 
@@ -72,33 +80,58 @@ def ssm_cache_defs(cfg: ModelConfig, batch: int) -> dict:
 
 
 def _proj_xbc(p, cfg: ModelConfig, u: torch.Tensor):
-    """Project input to x/B/C channels (pre-conv) and z/dt."""
+    """Project input to this rank's heads' x channels and the whole B/C
+    channels (pre-conv, (B, S, H·P) and (B, S, 2·G·N)) and to z/dt."""
     d_inner, H, Pd, G, N = _dims(cfg)
     b, s = u.shape[:2]
-    x = torch.einsum("bsd,dhp->bshp", u, p["wx"]).reshape(b, s, H * Pd)
+    h_loc = p["wx"].shape[1]
+    uh = spmd.to_model(u) if spmd.partial(h_loc, H) else u
+    x = torch.einsum("bsd,dhp->bshp", uh, p["wx"]).reshape(b, s, h_loc * Pd)
     Bm = torch.einsum("bsd,dgn->bsgn", u, p["wB"]).reshape(b, s, G * N)
     Cm = torch.einsum("bsd,dgn->bsgn", u, p["wC"]).reshape(b, s, G * N)
-    xbc = torch.cat([x, Bm, Cm], dim=-1)              # (B, S, conv_ch)
-    z = torch.einsum("bsd,dhp->bshp", u, p["wz"])     # (B, S, H, P)
-    dt = torch.einsum("bsd,dh->bsh", u, p["wdt"])     # (B, S, H)
-    return xbc, z, dt
+    bc = torch.cat([Bm, Cm], dim=-1)                  # (B, S, 2·G·N)
+    z = torch.einsum("bsd,dhp->bshp", uh, p["wz"])    # (B, S, H, P)
+    dt = torch.einsum("bsd,dh->bsh", uh, p["wdt"])    # (B, S, H)
+    return x, bc, z, dt
 
 
-def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
-    d_inner, H, Pd, G, N = _dims(cfg)
-    b, s, _ = xbc.shape
-    x = xbc[..., :d_inner].reshape(b, s, H, Pd)
-    Bm = xbc[..., d_inner:d_inner + G * N].reshape(b, s, G, N)
-    Cm = xbc[..., d_inner + G * N:].reshape(b, s, G, N)
-    return x, Bm, Cm
+def _conv_weights(p, cfg: ModelConfig, h_loc: int):
+    """(w, b) of this rank's x channels and of the B/C channels.  The
+    conv weights are whole on every rank; the x block's gradient is
+    summed over ``model`` (each rank uses its own channels of it)."""
+    d_inner, H, Pd = _dims(cfg)[:3]
+    w, b = p["conv_w"], p["conv_b"]
+    wx, bx = w[:, :d_inner], b[:d_inner]
+    if spmd.partial(h_loc, H):
+        h0, h1 = spmd.model_block(H)
+        wx = spmd.to_model(wx)[:, h0 * Pd:h1 * Pd]
+        bx = spmd.to_model(bx)[h0 * Pd:h1 * Pd]
+    return (wx, bx), (w[:, d_inner:], b[d_inner:])
 
 
-def _causal_conv(p, xbc: torch.Tensor, kernel: int) -> torch.Tensor:
-    """Depthwise causal conv over time.  xbc: (B, S, C)."""
+def _causal_conv(wb, xbc: torch.Tensor, kernel: int) -> torch.Tensor:
+    """Depthwise causal conv over time.  xbc: (B, S, C); wb: the (k, C)
+    weights and (C,) bias of its channels."""
+    w, bias = wb
     pad = F.pad(xbc, (0, 0, kernel - 1, 0))
-    out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i][None, None, :]
+    out = sum(pad[:, i:i + xbc.shape[1], :] * w[i][None, None, :]
               for i in range(kernel))
-    return F.silu(out + p["conv_b"][None, None, :])
+    return F.silu(out + bias[None, None, :])
+
+
+def _heads_groups(cfg: ModelConfig, h_loc: int, Bm, Cm):
+    """B/C (…, G, N) cut to the groups of this rank's heads → (Bm, Cm,
+    heads per group here)."""
+    d_inner, H, Pd, G, N = _dims(cfg)
+    hpg = H // G
+    if h_loc == H:
+        return Bm, Cm, hpg
+    if h_loc % hpg and hpg % h_loc:
+        raise ValueError(f"{h_loc} heads a rank do not align with SSM "
+                         f"groups of {hpg} heads")
+    h0, _ = spmd.model_block(H)
+    g0, g1 = h0 // hpg, (h0 + h_loc - 1) // hpg + 1
+    return Bm[..., g0:g1, :], Cm[..., g0:g1, :], min(hpg, h_loc)
 
 
 def _gated_norm(p, y: torch.Tensor, z: torch.Tensor,
@@ -144,11 +177,18 @@ def mamba_apply(p, cfg: ModelConfig, u: torch.Tensor,
         raise ValueError(f"sequence length {S} is not a multiple of the SSD "
                          f"chunk {Q}")
     nc = S // Q
-    hpg = H // G
+    h_all, H = H, p["wx"].shape[1]           # this rank's heads
 
-    xbc_raw, z, dt = _proj_xbc(p, cfg, u)
-    xbc = _causal_conv(p, xbc_raw, s_cfg.conv_kernel)
-    x, Bm, Cm = _split_xbc(cfg, xbc)
+    x_raw, bc_raw, z, dt = _proj_xbc(p, cfg, u)
+    wb_x, wb_bc = _conv_weights(p, cfg, H)
+    x = _causal_conv(wb_x, x_raw, s_cfg.conv_kernel).reshape(B_, S, H, Pd)
+    bc = _causal_conv(wb_bc, bc_raw, s_cfg.conv_kernel)
+    if H < h_all:
+        bc = spmd.to_model(bc)               # read by this rank's heads
+    Bm = bc[..., :G * N].reshape(B_, S, G, N)
+    Cm = bc[..., G * N:].reshape(B_, S, G, N)
+    Bm, Cm, hpg = _heads_groups(cfg, H, Bm, Cm)
+    G = Bm.shape[2]
     dt = F.softplus(dt.float() + p["dt_bias"])                   # (B,S,H)
     A = -torch.exp(p["A_log"])                                   # (H,) < 0
 
@@ -194,11 +234,14 @@ def mamba_apply(p, cfg: ModelConfig, u: torch.Tensor,
     y = y + p["D"][None, None, :, None] * x.float()
     y = _gated_norm(p, y, z, cfg.norm_eps)
     out = torch.einsum("bshp,hpd->bsd", y.to(u.dtype), p["wo"])
+    if H < h_all:
+        out = spmd.from_model(out)
     if not return_cache:
         return out
     k = s_cfg.conv_kernel
-    return out, {"state": state,
-                 "conv": xbc_raw[:, S - (k - 1):, :].to(cfg.param_dtype)}
+    tail = torch.cat([spmd.gather_model(x_raw[:, S - (k - 1):, :], 2),
+                      bc_raw[:, S - (k - 1):, :]], dim=-1)
+    return out, {"state": state, "conv": tail.to(cfg.param_dtype)}
 
 
 def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, cache: dict
@@ -206,18 +249,23 @@ def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, cache: dict
     """Single-token recurrent step.  u: (B, 1, d); cache {state (B,H,N,P)
     f32, conv (B, k−1, C)} → (out (B, 1, d), the new cache)."""
     d_inner, H, Pd, G, N = _dims(cfg)
-    xbc, z, dt = _proj_xbc(p, cfg, u)                  # (B,1,·)
+    h_loc = p["wx"].shape[1]
+    x_raw, bc_raw, z, dt = _proj_xbc(p, cfg, u)        # (B,1,·)
+    xbc = torch.cat([spmd.gather_model(x_raw, 2), bc_raw], dim=-1)
     hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
-                     dim=1)                            # (B, K, C)
+                     dim=1)                            # (B, K, C), whole
     conv_out = torch.einsum("bkc,kc->bc", hist, p["conv_w"]) + p["conv_b"]
-    conv_out = F.silu(conv_out)[:, None, :]
+    conv_out = F.silu(conv_out)
     new_conv = hist[:, 1:, :]
 
-    x, Bm, Cm = _split_xbc(cfg, conv_out)
+    h0, h1 = spmd.model_block(H) if h_loc < H else (0, H)
+    x = conv_out[:, h0 * Pd:h1 * Pd].reshape(-1, 1, h_loc, Pd)
+    Bm = conv_out[:, d_inner:d_inner + G * N].reshape(-1, 1, G, N)
+    Cm = conv_out[:, d_inner + G * N:].reshape(-1, 1, G, N)
+    Bm, Cm, hpg = _heads_groups(cfg, h_loc, Bm, Cm)
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]                 # (B,H)
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A[None, :])                                   # (B,H)
-    hpg = H // G
     Bh = Bm[:, 0].repeat_interleave(hpg, dim=-2)       # (B,H,N)
     Ch = Cm[:, 0].repeat_interleave(hpg, dim=-2)
     xd = x[:, 0].float() * dt[..., None]               # (B,H,P)
@@ -227,4 +275,6 @@ def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, cache: dict
     y = y + p["D"][None, :, None] * x[:, 0].float()
     y = _gated_norm(p, y[:, None], z, cfg.norm_eps)
     out = torch.einsum("bshp,hpd->bsd", y.to(u.dtype), p["wo"])
+    if h_loc < H:
+        out = spmd.from_model(out)
     return out, {"state": state, "conv": new_conv}

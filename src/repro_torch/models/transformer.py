@@ -19,7 +19,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import layers, moe as moe_lib
+from repro_torch.models import layers, moe as moe_lib, spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (ParamDef, init as init_params,
                                        stack_layers, tree_map, zeros)
@@ -82,10 +82,10 @@ def _block_train(p: Params, cfg: ModelConfig, kind: str, h: torch.Tensor,
 
 
 def _block_decode(p: Params, cfg: ModelConfig, kind: str, h: torch.Tensor,
-                  pos, cache: dict) -> torch.Tensor:
+                  pos, cache: dict, seq: tuple = ()) -> torch.Tensor:
     a, _ = layers.attention_decode(
         p["attn"], cfg, _attn_variant(cfg, kind),
-        layers.rmsnorm(p["norm1"], h, cfg.norm_eps), pos, cache)
+        layers.rmsnorm(p["norm1"], h, cfg.norm_eps), pos, cache, seq)
     return _ffn(p, cfg, h, a)[0]
 
 
@@ -157,7 +157,10 @@ class DecoderLM:
         b, s, _ = h.shape
         positions = layers.positions(b, s, h.device)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        cache = self.init_cache(b, s, device=h.device) if keep_cache else None
+        # Each leaf allocated at its first write, with the shape computed
+        # (this rank's KV heads in a sharded step).
+        cache = {f"b{i}": {} for i in range(len(cfg.pattern))} \
+            if keep_cache else None
 
         def body(hh, aux, blks):
             """One repeat → (h, aux, each pattern position's (k, v))."""
@@ -181,9 +184,15 @@ class DecoderLM:
                     C = _cache_len(cfg, kind, s)
                     k, v = out[2][i]
                     c = cache[f"b{i}"]
-                    c["k"][r] = layers.ring_cache(k, C)
-                    c["v"][r] = layers.ring_cache(v, C)
+                    for name, t in (("k", k), ("v", v)):
+                        t = layers.ring_cache(t, C)
+                        if name not in c:
+                            c[name] = t.new_empty((cfg.n_repeats, *t.shape))
+                        c[name][r] = t
         h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        if keep_cache:
+            cache = spmd.place_tree(cache, self.cache_defs(
+                spmd.global_batch(b), s))
         return h, aux / cfg.n_layers, cache
 
     def hidden_states(self, params: Params, batch: dict) -> torch.Tensor:
@@ -236,6 +245,7 @@ class DecoderLM:
                     blk = tree_map(lambda a: a[r], params["blocks"][f"b{i}"])
                     c = cache[f"b{i}"]
                     h = _block_decode(blk, cfg, kind, h, pos,
-                                      {"k": c["k"][r], "v": c["v"][r]})
+                                      {"k": c["k"][r], "v": c["v"][r]},
+                                      spmd.seq_axes(f"b{i}"))
             h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
             return layers.unembed(params["embed"], cfg, h), cache

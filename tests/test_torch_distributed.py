@@ -623,12 +623,15 @@ def test_partial_fold_stats_matches_reference(n_total, n_folds, lo, hi):
 @pytest.mark.parametrize("coll", [0.0, 3.2e9, 4.5e12])
 def test_roofline_collective_term_matches_reference(coll):
     """The collective term over one link rate: the reference's
-    ``ici_bw · ici_links``, NVLink's data-sheet rate by default."""
+    ``ici_bw · ici_links``, NVLink's data-sheet rate by default (the
+    port's ``hlo_analysis.roofline_terms``, which ``encoding_roofline``
+    calls)."""
     from repro.launch.hlo_analysis import roofline_terms as jterms
+    from repro_torch.launch import hlo_analysis as ha
     from repro_torch.launch import roofline_report as rr
 
-    got = rr.roofline_terms(1e12, 2e11, coll, peak_flops=67e12,
-                            mem_bw=3.35e12)
+    got = ha.roofline_terms(1e12, 2e11, coll, peak_flops=67e12,
+                            hbm_bw=3.35e12)
     want = jterms(1e12, 2e11, coll, peak_flops=67e12, hbm_bw=3.35e12,
                   ici_bw=rr.H100_NVLINK_BW, ici_links=1)
     assert got == pytest.approx(want) and got.keys() == want.keys()

@@ -72,7 +72,9 @@ def test_port_has_every_slice_module():
               "repro_torch.models.encdec", "repro_torch.models.scanning",
               "repro_torch.models.losses", "repro_torch.optim",
               "repro_torch.optim.adamw", "repro_torch.optim.schedule",
-              "repro_torch.launch.steps", "repro_torch.launch.train"):
+              "repro_torch.launch.steps", "repro_torch.launch.train",
+              "repro_torch.launch.mesh", "repro_torch.launch.hlo_analysis",
+              "repro_torch.models.spmd"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):
@@ -209,3 +211,21 @@ def test_unported_plans_raise_not_implemented_naming_roadmap():
         n_folds=5, jitter=1e-6)
     with pytest.raises(ValueError, match="bands must be set"):
         EncoderConfig().banded_config()
+
+
+def test_mesh_slice_imports_load_no_jax_and_no_repro():
+    """The mesh, the rule tables, the sharded steps and the collective
+    count import neither JAX nor the reference package."""
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.launch.mesh, "
+            "repro_torch.launch.hlo_analysis, repro_torch.launch.steps, "
+            "repro_torch.models.spmd, repro_torch.models.params, "
+            "repro_torch.convert\n"
+            "from repro_torch.models.params import RULES, specs, abstract\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

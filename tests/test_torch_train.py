@@ -56,6 +56,21 @@ LOSS_ARCHS = ["qwen3-1.7b", "gemma2-2b", "phi3.5-moe-42b-a6.6b",
 SEQ = 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _world_of_one():
+    """The port's train step runs over a mesh: a (1, 1) mesh in a world of
+    this one process, left at the end of the module."""
+    from repro_torch.core import compat
+    compat.init_world_of_one("cpu")
+    yield
+    compat.shutdown()
+
+
+def _mesh():
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(model=1, device="cpu")
+
+
 def _cfgs(arch, dtype="float32", **over):
     out = []
     for mod, dt_mod in ((jconfigs, jnp), (tconfigs, torch)):
@@ -219,11 +234,11 @@ def test_remat_on_and_off_are_bitwise_equal(arch):
     assert all(torch.equal(a, b) for a, b in zip(_leaves(gr), _leaves(go)))
     # And through the train step's switch.
     shape = TShape("t", SEQ, 2, "train")
-    on, no = (tsteps.build_train_step(tcfg, shape, remat=r).fn(
-        _clone(tp), toptim.adamw_init(tp), tb) for r in (True, False))
+    on, no = (tsteps.build_train_step(tcfg, _mesh(), shape, remat=r).fn(
+        *_placed(tcfg, tp), tb) for r in (True, False))
     assert torch.equal(on[2]["loss"], no[2]["loss"])
-    assert all(torch.equal(a, b) for a, b in zip(_leaves(on[0]),
-                                                 _leaves(no[0])))
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(_loc(on[0])),
+                                                 _leaves(_loc(no[0]))))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-2.7b",
@@ -276,10 +291,19 @@ def _t(tree):
     return tparams.tree_map(lambda x: torch.from_numpy(x.copy()), tree)
 
 
-def _clone(tree):
-    """A copy to hand to the train step, which updates its inputs in
-    place (the memoised parameters stay as they were)."""
-    return tparams.tree_map(torch.clone, tree)
+def _placed(cfg, tree):
+    """``tree`` placed on the (1, 1) mesh, as the train step takes its
+    parameters, and AdamW's state of it.  The placed leaves are copies:
+    the step updates them in place, the memoised parameters stay as
+    they were."""
+    params = convert.shard_params(tree, cfg, _mesh())
+    return params, toptim.adamw_init(params)
+
+
+def _loc(tree):
+    """The local shards of a placed tree (on one rank, the whole
+    tensors)."""
+    return tparams.tree_map(tsteps.local, tree)
 
 
 @pytest.mark.parametrize("clip", [1.0, None, 1e3],
@@ -376,28 +400,29 @@ def test_train_step_matches_the_reference_step(arch, micro):
     jbundle = jsteps.build_train_step(jcfg, mesh, jshape,
                                       opt=joptim.AdamWConfig(**opt),
                                       microbatch=micro)
-    tbundle = tsteps.build_train_step(tcfg, tshape,
+    tbundle = tsteps.build_train_step(tcfg, _mesh(), tshape,
                                       opt=toptim.AdamWConfig(**opt),
                                       microbatch=micro)
     jb, tb = _both(_batch(jcfg, 10, b=4))
     with mesh:
         jnew, jopt, jmet = jax.jit(jbundle.fn)(jp, joptim.adamw_init(jp), jb)
-    tin = _clone(tp)
-    tnew, topt, tmet = tbundle.fn(tin, toptim.adamw_init(tin), tb)
+    tin, topt = _placed(tcfg, tp)
+    tnew, topt, tmet = tbundle.fn(tin, topt, tb)
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
                                rtol=1e-5)
     np.testing.assert_allclose(float(tmet["grad_norm"]),
                                float(jmet["grad_norm"]), rtol=1e-5)
-    for got, want in zip(_leaves(tnew), jax.tree_util.tree_leaves(jnew)):
+    for got, want in zip(_leaves(_loc(tnew)),
+                         jax.tree_util.tree_leaves(jnew)):
         np.testing.assert_allclose(_np(got), _np(want), **F32)
     for name in ("mu", "nu"):
-        _hold_grads(topt[name], jopt[name])
+        _hold_grads(_loc(topt[name]), jopt[name])
     assert int(topt["step"]) == 1
     # The step updates its inputs in place (the reference donates them):
     # it returns the tensors it was given, each changed.
     assert all(a is b for a, b in zip(_leaves(tnew), _leaves(tin)))
     assert all(not torch.equal(a, b) for a, b in
-               zip(_leaves(tnew), _leaves(tp)) if a.numel() > 4)
+               zip(_leaves(_loc(tnew)), _leaves(tp)) if a.numel() > 4)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "llava-next-34b",
@@ -407,7 +432,7 @@ def test_train_step_inputs_match_the_reference_abstract_inputs(arch):
     mesh = jmesh.make_host_mesh(model=1)
     jab = jsteps.build_train_step(jcfg, mesh, JShape("t", 32, 4, "train")
                                   ).abstract_inputs
-    tab = tsteps.build_train_step(tcfg, TShape("t", 32, 4, "train")
+    tab = tsteps.build_train_step(tcfg, _mesh(), TShape("t", 32, 4, "train")
                                   ).abstract_inputs
 
     def rows(tree):
@@ -428,14 +453,16 @@ def test_train_step_inputs_match_the_reference_abstract_inputs(arch):
 def test_microbatch_falls_back_to_one_when_the_batch_does_not_split():
     _, tcfg, _, tm, _, tp = _setup("qwen3-1.7b")
     tb = _both(_batch(tcfg, 11, b=3))[1]
-    one = tsteps.build_train_step(tcfg, TShape("t", SEQ, 3, "train"))
-    three_by_two = tsteps.build_train_step(tcfg, TShape("t", SEQ, 3, "train"),
+    one = tsteps.build_train_step(tcfg, _mesh(), TShape("t", SEQ, 3,
+                                                              "train"))
+    three_by_two = tsteps.build_train_step(tcfg, _mesh(),
+                                           TShape("t", SEQ, 3, "train"),
                                            microbatch=2)
-    a = one.fn(_clone(tp), toptim.adamw_init(tp), tb)
-    b = three_by_two.fn(_clone(tp), toptim.adamw_init(tp), tb)
+    a = one.fn(*_placed(tcfg, tp), tb)
+    b = three_by_two.fn(*_placed(tcfg, tp), tb)
     assert torch.equal(a[2]["loss"], b[2]["loss"])
-    assert all(torch.equal(x, y) for x, y in zip(_leaves(a[0]),
-                                                 _leaves(b[0])))
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(_loc(a[0])),
+                                                 _leaves(_loc(b[0]))))
 
 
 # --------------------------------------------------------------------------
@@ -480,9 +507,9 @@ def test_train_step_with_the_kernels_on_raises(arch):
     batch = tsynthetic.make_batch(torch.Generator().manual_seed(14), cfg, 2,
                                   32, device="cpu")
     tbuild(cfg).hidden_states(params, batch)
-    step = tsteps.build_train_step(cfg, TShape("t", 32, 2, "train"))
+    step = tsteps.build_train_step(cfg, _mesh(), TShape("t", 32, 2, "train"))
     with pytest.raises(RuntimeError, match="has no backward"):
-        step.fn(params, toptim.adamw_init(params), batch)
+        step.fn(*_placed(cfg, params), batch)
 
 
 # --------------------------------------------------------------------------
@@ -526,11 +553,12 @@ def _train_state():
     _, tcfg = _cfgs("seamless-m4t-medium", dtype="bfloat16")
     params = tbuild(tcfg).init(torch.Generator().manual_seed(15),
                                device="cpu")
-    step = tsteps.build_train_step(tcfg, TShape("t", SEQ, 2, "train"))
+    step = tsteps.build_train_step(tcfg, _mesh(), TShape("t", SEQ, 2,
+                                                               "train"))
     batch = tsynthetic.make_batch(torch.Generator().manual_seed(16), tcfg,
                                   2, SEQ, device="cpu")
-    params, opt, _ = step.fn(params, toptim.adamw_init(params), batch)
-    return {"params": params, "opt": opt}
+    params, opt, _ = step.fn(*_placed(tcfg, params), batch)
+    return _loc({"params": params, "opt": opt})
 
 
 def test_checkpoint_save_reads_in_the_reference_and_restores(tmp_path):
@@ -631,9 +659,43 @@ def test_train_driver_smoke_with_checkpoint(tmp_path):
 
 
 def test_train_driver_refuses_the_mesh_flags_and_unknown_rules():
+    """The mesh flags build the production meshes, which a world of one
+    process cannot hold: the mesh's own error names the ranks they need.
+    An unknown rule table is a usage error."""
     p = _port_train("--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                     "--production-mesh", timeout=300)
-    assert p.returncode != 0 and "item 12" in p.stderr, p.stderr
+    assert p.returncode != 0 and "needs a world of exactly 256 ranks" in \
+        p.stderr, p.stderr
+    p = _port_train("--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                    "--multi-pod", timeout=300)
+    assert p.returncode != 0 and "needs a world of exactly 512 ranks" in \
+        p.stderr, p.stderr
     p = _port_train("--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
                     "--rules", "no-such-table", timeout=300)
     assert p.returncode == 2 and "tp_fsdp" in p.stderr, p.stderr
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("rules", ["tp", "tp_fsdp"])
+def test_train_driver_four_ranks_matches_one(rules):
+    """``train`` under ``torch.distributed.run`` in a 4-rank gloo world
+    trains on a (2, 2) mesh: rank 0 prints the losses of the one-rank run
+    (bf16 smoke parameters: held to the bf16 tolerance, 2e-2)."""
+    args = ("--arch", "gemma2-2b", "--smoke", "--steps", "4", "--batch",
+            "4", "--seq", "16", "--device", "cpu", "--rules", rules)
+    one = _port_train(*args, timeout=300)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    four = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *args],
+        capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
+    assert one.returncode == 0 and four.returncode == 0, four.stderr
+    assert four.stdout.count("done") == 1          # rank 0 alone prints
+
+    def losses(out):
+        return [float(x) for x in re.findall(r"loss=(\S+)", out)]
+
+    got, want = losses(four.stdout), losses(one.stdout)
+    assert len(got) == len(want) == 4
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)

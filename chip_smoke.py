@@ -4,9 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card (Hopper, sm_90a)
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-nvcc into ``build/kernels/``, then runs twenty phases, each of which
+nvcc into ``build/kernels/``, then runs twenty-one phases, each of which
 raises (exit code 1) on a failed check (``--only 14,16`` runs the build
-and just the listed phases, 6 and 12 to 20, and prints no result lines):
+and just the listed phases, 6 and 12 to 21, and prints no result lines):
 
 1. Environment: versions, TF32 switches (all off), card name and power
    limit, kernel build time (one nvcc per source, in parallel) and the
@@ -226,7 +226,17 @@ and just the listed phases, 6 and 12 to 20, and prints no result lines):
     columns and (c) against the in-memory fit.  Rank 0 holds every
     launch against its plain version; the ranks' launches, seconds and
     each ``all_reduce``/gather's bytes and seconds are printed (gloo
-    moves CUDA tensors through host memory: not NVLink's rates).
+    moves CUDA tensors through host memory: not NVLink's rates).  (a)
+    ends with ``launch/steps.py``'s ``build_step`` on a (1, 1) mesh
+    (module constants ``MESH_*``): gemma2-2b's sharded prefill and decode
+    against ``ServeEngine``, zamba2-2.7b's kernel prefill against the
+    plain one, and qwen3-1.7b train steps against the plain update; that
+    train step is then counted by the dry run's counter
+    (``hlo_analysis.count_costs``) on fake tensors, as ``launch.dryrun``
+    traces it, and on one more real step: FLOPs, bytes and collective
+    bytes equal; its roofline terms (compute at the f32 and bf16 rates,
+    memory at HBM3) are printed beside the measured step, its argument +
+    temp bytes beside the card's peak allocation.
 19. LM serving (``--only 19``; random bf16 weights from a seeded
     generator on the card, the kernel switches on through
     ``configs.for_device``).  (a) ``serve.main`` in this process for
@@ -267,6 +277,18 @@ and just the listed phases, 6 and 12 to 20, and prints no result lines):
     driver's first batch (the driver's last-against-first loss is
     printed: on fresh uniform tokens it moves less than the spread
     between batches at this size); step times and peak device memory.
+21. The dry run on the card's host (``--only 21``; in a full run started
+    beside phases 13–16 and collected after them): ``python -m
+    repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k`` (with
+    its cost probes) and ``python -m repro_torch.launch.perf --arch
+    gemma2-2b --shape decode_32k``, each a child that sees no card
+    (``CUDA_VISIBLE_DEVICES=""``) and traces on fake tensors as rank 0
+    of a fake 256-rank world; then ``python -m
+    repro_torch.launch.roofline_report`` of their records.  Each exits
+    0, the qwen3 row's 6ND/HLO lies in 0.3–1.0, and the peak RSS each
+    child adds over a baseline child (the same imports, fake world and
+    mesh, no trace) is below its record's argument + temp bytes (it
+    allocated none of them).
 
 The last two lines are the kernels' JSON record and the ``{"ok": true, ...}``
 line.  Without a CUDA device, or without the repository beside it, the
@@ -443,6 +465,31 @@ MESH_LM_B, MESH_LM_PROMPT, MESH_LM_GEN = 2, 2048, 16
 MESH_HYBRID_SEQ = 1024
 MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_SEQ = 4, 4, 1024
 MESH_TRAIN_STEPS, MESH_TRAIN_RTOL = 2, 1e-4
+# Phase 21: the dry run on the card's host, as a lab runs it before it
+# books a pod: launch.dryrun (with its cost probes) and launch.perf, each
+# in a child that sees no card (CUDA_VISIBLE_DEVICES=""), started beside
+# phases 13–16 (whose times are printed) at the lowest priority, then
+# launch.roofline_report of both records.  The qwen3-1.7b train_4k row's
+# 6ND/HLO must lie in the reference's band (tests/test_reporting.py:33),
+# and the peak RSS each child adds over DRY_BASE (a child that imports
+# the same modules and makes the same fake world and mesh, then exits)
+# must stay below its record's argument + temp bytes: it allocated none
+# of them.  The baseline is taken because the card's host counts mapped
+# library pages as resident (~4.5 GB for `import torch` alone).
+DRY_BASE = ("import torch\n"
+            "from repro_torch.launch import dryrun, mesh, perf, steps\n"
+            "dryrun.fake_world(256)\n"
+            "mesh.make_production_mesh(device='cpu').device_mesh\n"
+            "print(''.join(l for l in open('/proc/self/status')\n"
+            "              if l.startswith(('VmHWM', 'VmRSS', 'Rss'))))\n")
+DRY_RUNS = {
+    "dryrun": ["repro_torch.launch.dryrun", "--arch", "qwen3-1.7b",
+               "--shape", "train_4k"],
+    "perf": ["repro_torch.launch.perf", "--arch", "gemma2-2b", "--shape",
+             "decode_32k"],
+}
+DRY_BAND = (0.3, 1.0)
+DRY_TIMEOUT_S = 600
 AUDIO = "seamless-m4t-medium"
 AUDIO_BATCH, AUDIO_FRAMES, AUDIO_GEN = 8, 4096, 32
 AUDIO_FEAT_B, AUDIO_TOKENS = 2, 1024
@@ -4107,6 +4154,47 @@ def phase_multidevice(card: str) -> dict:
     return total
 
 
+def _dry_run_counts(bundle, mesh, sharded, opt, batch, step_s: float,
+                    peak_gib: float, card: str) -> None:
+    """Phase 18(a)(iii), continued: the dry run's counter
+    (``hlo_analysis.count_costs``) on this train step twice, on fake
+    tensors as ``launch.dryrun`` traces it and on one more, untimed, real
+    step on the card: FLOPs, bytes and collective bytes must be equal.
+    Prints the dry run's roofline terms beside the measured step and its
+    argument + temp bytes beside the card's peak allocation."""
+    import torch
+    from repro_torch.launch import dryrun, hlo_analysis, roofline_report
+
+    t0 = time.perf_counter()
+    fake = dryrun._compile(bundle, mesh)
+    fake_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with hlo_analysis.count_costs() as real:
+        bundle.fn(sharded, opt, batch)
+    torch.cuda.synchronize()
+    got, want = fake.costs.as_dict(), real.as_dict()
+    check(got == want, f"qwen3 train: the dry run's counts on fake "
+          f"tensors {got} differ from a real step's {want}")
+    coll = sum(got["collective_bytes"].values())
+    f32 = hlo_analysis.roofline_terms(
+        got["flops"], got["hlo_bytes"], coll,
+        peak_flops=roofline_report.H100_PEAK_FLOPS)
+    bf16 = hlo_analysis.roofline_terms(got["flops"], got["hlo_bytes"], coll)
+    mem = fake.memory_analysis()
+    dry_gib = (mem["argument_size_in_bytes"] +
+               mem["temp_size_in_bytes"]) / 2**30
+    print(f"[multidevice] (a) dry-run counter on the qwen3 train step "
+          f"(fake trace {fake_s:.2f} s), fake = real: {got['flops']:.6e} "
+          f"FLOPs, {got['hlo_bytes']:.6e} bytes unfused, collectives "
+          f"{coll:.0f} B; predicted compute {f32['t_compute_s']:.4f} s at "
+          f"the f32 rate (TF32 off), {bf16['t_compute_s']:.4f} s at the "
+          f"bf16 peak, memory {f32['t_memory_s']:.4f} s at HBM3, beside "
+          f"the measured {step_s:.4f} s/step; argument + temp "
+          f"{dry_gib:.2f} GiB ({mem['argument_size_in_bytes'] / 2**30:.2f}"
+          f" + {mem['temp_size_in_bytes'] / 2**30:.2f}) beside "
+          f"max_memory_allocated {peak_gib:.2f} GiB [{card}]")
+
+
 def _mesh_steps(dev, card: str) -> dict:
     """Phase 18(a), continued: ``build_step``'s sharded prefill, decode and
     train steps on a (1, 1) mesh in this process's NCCL world of one (see
@@ -4260,6 +4348,9 @@ def _mesh_steps(dev, card: str) -> dict:
           f"{_counters()} (training runs the plain paths)")
     check(all(steps.is_dtensor(t) for t in leaves(sharded)),
           "qwen3 train: the step did not return DTensors")
+    _dry_run_counts(bundle, mesh, sharded, opt,
+                    stream.batch_at(MESH_TRAIN_STEPS), min(step_s[1:]),
+                    peak, card)
     del sharded, opt
     free()
     plain_opt = adamw_init(params)
@@ -4899,18 +4990,192 @@ def phase_audio(card: str) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 21
+# --------------------------------------------------------------------------
+def _start_dry_runs() -> dict:
+    """Phase 21's children, started at once in the background, each in its
+    own process group, with no card visible: the baseline (``DRY_BASE``)
+    and ``DRY_RUNS``; a thread watches them and then runs
+    ``launch.roofline_report`` of the two records, so that only the
+    printing is left for ``phase_dry_run``.  → the handle it collects."""
+    import threading
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=build))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    runs = {"base": ["-c", DRY_BASE]}
+    runs.update({tag: ["-m", *argv, "--json", str(root / f"{tag}.jsonl")]
+                 for tag, argv in DRY_RUNS.items()})
+    h = dict(root=root, procs={}, t0=time.perf_counter(), done={})
+    for tag, argv in runs.items():
+        with open(root / f"{tag}.out", "w") as fo, \
+                open(root / f"{tag}.err", "w") as fe:
+            h["procs"][tag] = subprocess.Popen(
+                [sys.executable, *argv], cwd=ROOT, env=env, stdout=fo,
+                stderr=fe, start_new_session=True)
+        _lowest(h["procs"][tag])
+
+    def chain():
+        # Every child's resident set, read every 0.2 s while it runs;
+        # then its exit code, peak and seconds after the start.
+        deadline = h["t0"] + DRY_TIMEOUT_S
+        peak = dict.fromkeys(h["procs"], 0)
+        while len(h["done"]) < len(h["procs"]):
+            for tag, proc in h["procs"].items():
+                if tag in h["done"]:
+                    continue
+                peak[tag] = max(peak[tag], _rss(proc.pid))
+                rc = proc.poll()
+                if rc is None and time.perf_counter() > deadline:
+                    rc = "timeout"
+                if rc is not None:
+                    h["done"][tag] = (rc, peak[tag],
+                                      time.perf_counter() - h["t0"])
+            time.sleep(0.2)
+        if any(h["done"][tag][0] != 0 for tag in DRY_RUNS):
+            return
+        merged = root / "dry.jsonl"
+        merged.write_text("".join((root / f"{tag}.jsonl").read_text()
+                                  for tag in DRY_RUNS))
+        t0 = time.perf_counter()
+        argv = [sys.executable, "-m", "repro_torch.launch.roofline_report",
+                str(merged)]
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        _lowest(proc)
+        out, err = proc.communicate(timeout=300)
+        h["report"] = subprocess.CompletedProcess(argv, proc.returncode,
+                                                  out, err)
+        h["report_s"] = time.perf_counter() - t0
+
+    h["thread"] = threading.Thread(target=chain, daemon=True)
+    h["thread"].start()
+    return h
+
+
+def _stop_dry_runs(h: dict | None) -> None:
+    """End phase 21's children that still run, and delete their files."""
+    if h is None:
+        return
+    for proc in h["procs"].values():
+        if proc.returncode is None and proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    h["thread"].join(timeout=60)
+    shutil.rmtree(h["root"], ignore_errors=True)
+
+
+def _lowest(proc) -> None:
+    """Run a phase 21 child at the lowest priority, so that the phases
+    beside it, which print their times, keep the cores (best effort: a
+    host that refuses leaves it as it is)."""
+    try:
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+    except OSError as e:
+        print(f"[dryrun] priority of child {proc.pid} left as it is: {e}")
+
+
+def _rss(pid: int) -> int:
+    """The resident set of a running process, in bytes: the larger of
+    its VmHWM (its peak, where /proc has it) and its VmRSS (the card's
+    host has only the second); 0 once it has ended.  Not ``ru_maxrss``:
+    that keeps the high-water mark of the process image a child was
+    forked from, this one's pages, across its exec."""
+    out = 0
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(("VmHWM:", "VmRSS:")):
+                    out = max(out, int(line.split()[1]) * 1024)
+    except OSError:
+        pass
+    return out
+
+
+def _dry_output(h: dict, tag: str) -> None:
+    """Print a phase 21 child's output; its error tail if it failed."""
+    rc = h["done"][tag][0]
+    for line in (h["root"] / f"{tag}.out").read_text().splitlines():
+        print(f"[dryrun]   {tag}: {line}")
+    if rc != 0:
+        print((h["root"] / f"{tag}.err").read_text()[-6000:],
+              file=sys.stderr)
+    check(rc == 0, f"phase 21's {tag} child exited {rc}")
+
+
+def phase_dry_run(card: str, h: dict | None = None) -> None:
+    """Phase 21: the dry run and ``perf`` on the card's host (children
+    started by ``_start_dry_runs``, here if ``h`` is None), then
+    ``launch.roofline_report`` of their records."""
+    h = h or _start_dry_runs()
+    try:
+        t0 = time.perf_counter()
+        h["thread"].join(timeout=DRY_TIMEOUT_S)
+        waited = time.perf_counter() - t0
+        check(not h["thread"].is_alive(), "phase 21's children did not end "
+              f"within {DRY_TIMEOUT_S} s")
+        _dry_output(h, "base")
+        base = h["done"]["base"][1]
+        print(f"[dryrun] baseline child (imports, fake world, mesh): peak "
+              f"RSS {base / 2**30:.2f} GiB (sampled every 0.2 s)")
+        check(base > 0, "phase 21: no resident set read for the baseline "
+              "child")
+        for tag, argv in DRY_RUNS.items():
+            _dry_output(h, tag)
+            _, rss, wall = h["done"][tag]
+            with open(h["root"] / f"{tag}.jsonl") as f:
+                (rec,) = [json.loads(line) for line in f]
+            mem = rec["memory"]
+            need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            print(f"[dryrun] {tag}: python -m {' '.join(argv)} had exited "
+                  f"0 by {wall:.1f} s after the start "
+                  f"(CUDA_VISIBLE_DEVICES=\"\"); trace {rec['compile_s']} s; "
+                  f"peak RSS {rss / 2**30:.2f} GiB, {(rss - base) / 2**30:.2f}"
+                  f" GiB over the baseline child, below argument + temp "
+                  f"{need / 2**30:.2f} GiB a device [{card}]")
+            check(rss > 0, f"phase 21: no resident set read for {tag}")
+            check(rss - base < need, f"{tag}: peak RSS {rss} B, "
+                  f"{rss - base} B over the baseline child's, is not below "
+                  f"its record's argument + temp {need} B")
+        res = h["report"]
+        for line in res.stdout.splitlines():
+            print(f"[dryrun]   roofline_report: {line}")
+        if res.returncode != 0:
+            print(res.stderr[-6000:], file=sys.stderr)
+        check(res.returncode == 0, f"roofline_report exited "
+              f"{res.returncode}")
+        row = [line for line in res.stdout.splitlines()
+               if line.startswith("| qwen3-1.7b | train_4k")]
+        check(len(row) == 1, "roofline_report: no qwen3 train_4k row")
+        ratio = float(row[0].split("|")[7].strip())
+        check(DRY_BAND[0] < ratio < DRY_BAND[1], f"qwen3-1.7b train_4k "
+              f"6ND/HLO {ratio} outside {DRY_BAND}")
+        print(f"[dryrun] phase 21: qwen3-1.7b train_4k 6ND/HLO {ratio:.2f} "
+              f"in {DRY_BAND}; roofline_report {h['report_s']:.1f} s; all "
+              f"done {time.perf_counter() - h['t0']:.1f} s after the start, "
+              f"{waited:.1f} s of it waited for here [{card}]")
+    finally:
+        _stop_dry_runs(h)
+
+
 def _selected(argv: list[str]) -> set[int] | None:
     """``--only 14,16`` runs phase 1 and the listed independent phases
-    (6 and 12 to 20) and prints no result lines: a quick check while
+    (6 and 12 to 21) and prints no result lines: a quick check while
     working on them.  With no arguments every phase runs."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
-                         "(N in 6, 12..20)")
+                         "(N in 6, 12..21)")
     only = {int(v) for v in argv[1].split(",")}
-    if not only <= {6, 12, 13, 14, 15, 16, 17, 18, 19, 20}:
-        raise SystemExit(f"--only takes phases 6 and 12 to 20, got "
+    if not only <= {6, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21}:
+        raise SystemExit(f"--only takes phases 6 and 12 to 21, got "
                          f"{sorted(only)}")
     return only
 
@@ -4935,7 +5200,8 @@ def main(argv: list[str]) -> int:
                          (14, phase_mor), (15, phase_banded),
                          (16, phase_serving), (17, phase_drivers),
                          (18, phase_multidevice),
-                         (19, phase_lm_serving), (20, phase_audio)):
+                         (19, phase_lm_serving), (20, phase_audio),
+                         (21, phase_dry_run)):
             if n in only:
                 t0 = time.perf_counter()
                 phase(card)
@@ -4978,8 +5244,10 @@ def main(argv: list[str]) -> int:
     stamp("12")
     # Phase 17's whole-brain driver runs beside phases 13–16 (its
     # processes mostly start up); phase 17 collects and checks it.
+    # Phase 21's dry runs (CPU children, no card) run beside them too.
     wb = _start_wholebrain_driver(card)
     wb["beside"] = ", beside phases 13–16 and 17(a), (c)"
+    dry = _start_dry_runs()
     try:
         phase_wholebrain_parity(card)
         stamp("13")
@@ -4990,10 +5258,15 @@ def main(argv: list[str]) -> int:
         phase_serving(card)
         stamp("16")
         t0 = time.perf_counter()
+        phase_dry_run(card, dry)
+        print(f"[done] phase 21 (started beside phases 13–16) collected in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         for k, v in phase_drivers(card, wb).items():
             launches[k] += v
     finally:
         _stop_driver(wb)
+        _stop_dry_runs(dry)
         shutil.rmtree(wb["root"], ignore_errors=True)
     print(f"[done] phase 17 passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

@@ -202,13 +202,18 @@ class Mesh:
     def device_mesh(self):
         """The ``DeviceMesh`` over this mesh's ranks and axis names, built
         on first use (collective: every rank of the world asks for it in
-        the same order)."""
+        the same order).  It is built with torch's dispatch modes set
+        aside, so that its rank tensor is a real CPU tensor even when it is
+        first asked for under ``FakeTensorMode`` (the dry run)."""
         if self._device_mesh is None:
             from torch.distributed.device_mesh import DeviceMesh
-            self._device_mesh = DeviceMesh(
-                self.device.type,
-                torch.tensor(self.ranks).reshape(tuple(self.shape.values())),
-                mesh_dim_names=self.axis_names)
+            from torch.utils._python_dispatch import _disable_current_modes
+            with _disable_current_modes():
+                self._device_mesh = DeviceMesh(
+                    self.device.type,
+                    torch.tensor(self.ranks).reshape(
+                        tuple(self.shape.values())),
+                    mesh_dim_names=self.axis_names)
         return self._device_mesh
 
     @staticmethod

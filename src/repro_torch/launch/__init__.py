@@ -17,18 +17,28 @@ on the CPU):
   under ``python -m torch.distributed.run``.
 * ``obs_report`` — span tables and the coverage gate of a trace;
   ``obscli`` wires ``--trace-out``/``--metrics-out`` into every driver.
-* ``roofline_report`` — ``encoding_roofline`` of a ridge-CV fit.
+* ``dryrun`` — every (architecture × input shape) step traced on fake
+  tensors as rank 0 of a fake 256-rank world (512 with ``--multi-pod``):
+  memory per device, FLOPs, bytes and collective bytes, with the cost
+  probes; ``perf`` — the same with optimisation levers, and the roofline
+  terms; ``roofline_report`` — the roofline table of their JSONL, and
+  ``encoding_roofline``/``predict_roofline`` of a ridge-CV fit and a
+  serving pass.  These three need no card and claim none:
+  ``PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b
+  --shape train_4k --json d.jsonl``, ``python -m
+  repro_torch.launch.perf --arch gemma2-2b --shape decode_32k --json
+  d.jsonl``, ``python -m repro_torch.launch.roofline_report d.jsonl``
+  (``chip_smoke.py`` phase 21 runs them on the card's host).
 
 Modules the drivers build on: ``mesh`` (the production and host meshes,
 the H100 constants), ``steps`` (the rule tables' shardings and the
 sharded train, prefill and decode steps, ``build_step``) and
-``hlo_analysis`` (collective bytes counted at a step's collectives, the
-roofline terms).
+``hlo_analysis`` (collective bytes counted at a step's collectives,
+``count_costs`` at the ops a rank runs, the roofline terms).
 
 ``encode`` also runs under ``python -m torch.distributed.run`` (B-MOR,
 dual B-MOR, sharded streaming over the ranks; ``--dist-backend``).
 
-Not ported yet (ROADMAP queue 1 item 12 (3), steps 6–7): ``dryrun``,
-``perf`` and the rest of ``roofline_report``; of ``hlo_analysis`` the
-HLO-text parser, which has no PyTorch counterpart.
+Not ported: of ``hlo_analysis`` the HLO-text parser, which has no
+PyTorch counterpart (the port counts at the collectives a step issues).
 """

@@ -39,6 +39,19 @@ data-parallel gradient is the ``all_reduce`` over the data axes divided
 by their size (a ``tp_fsdp`` weight's comes from its gather's
 ``reduce_scatter``).  The kernels stay off for training: they have no
 backward (``kernels.ops``).
+
+Two keywords of the reference, which only the dry run's cost probes and
+``perf`` pass, are accepted and change nothing:
+
+* ``unroll`` (every step): the reference scans its layers with
+  ``lax.scan`` and unrolls them for the probes; the port's layer loops
+  are Python loops either way (``models.scanning.scan_blocks``).
+* ``microbatch_unroll`` (train): the reference's scanned accumulation
+  all-reduces each microbatch's gradient, and its unrolled one lets XLA
+  merge the M all-reduces into one of the summed gradients.  The port's
+  accumulation already sums the M gradients locally and reduces once
+  after the loop, so its gradient all-reduce bytes are those of the
+  reference's unrolled form, 1/M of its scanned one's.
 """
 from __future__ import annotations
 
@@ -205,7 +218,10 @@ def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                      rules: str = "tp",
                      opt: AdamWConfig = AdamWConfig(),
                      remat: bool = True,
-                     microbatch: int = 1) -> StepBundle:
+                     microbatch: int = 1,
+                     microbatch_unroll: bool = False,
+                     unroll: bool = False) -> StepBundle:
+    del microbatch_unroll, unroll       # no effect (module docstring)
     model = build_model(cfg)
     # Remat lives inside the models (one recomputed body per layer).
     model.remat = remat
@@ -340,7 +356,8 @@ def _placed_params(mesh, model, shape: InputShape, rules: str):
 
 
 def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
-                       rules: str = "tp") -> StepBundle:
+                       rules: str = "tp", unroll: bool = False) -> StepBundle:
+    del unroll                          # no effect (module docstring)
     model = build_model(cfg)
     defs, table, pspecs, psh = _placed_params(mesh, model, shape, rules)
     daxes = data_axes(mesh)
@@ -393,7 +410,8 @@ def _seq_axes(cache: dict) -> dict[str, tuple[str, ...]]:
 
 
 def build_decode_step(cfg: ModelConfig, mesh, shape: InputShape,
-                      rules: str = "tp") -> StepBundle:
+                      rules: str = "tp", unroll: bool = False) -> StepBundle:
+    del unroll                          # no effect (module docstring)
     model = build_model(cfg)
     defs, table, pspecs, psh = _placed_params(mesh, model, shape, rules)
     daxes = data_axes(mesh)
@@ -440,6 +458,7 @@ def build_step(cfg: ModelConfig, mesh, shape: InputShape,
             kw.setdefault("microbatch", 4)
         return build_train_step(cfg, mesh, shape, rules, **kw)
     kw.pop("microbatch", None)
+    kw.pop("microbatch_unroll", None)
     if shape.kind == "prefill":
         return build_prefill_step(cfg, mesh, shape, rules, **kw)
     return build_decode_step(cfg, mesh, shape, rules, **kw)

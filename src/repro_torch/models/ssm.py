@@ -239,8 +239,10 @@ def mamba_apply(p, cfg: ModelConfig, u: torch.Tensor,
     if not return_cache:
         return out
     k = s_cfg.conv_kernel
-    tail = torch.cat([spmd.gather_model(x_raw[:, S - (k - 1):, :], 2),
-                      bc_raw[:, S - (k - 1):, :]], dim=-1)
+    x_tail = x_raw[:, S - (k - 1):, :]
+    if H < h_all:
+        x_tail = spmd.gather_model(x_tail, 2)
+    tail = torch.cat([x_tail, bc_raw[:, S - (k - 1):, :]], dim=-1)
     return out, {"state": state, "conv": tail.to(cfg.param_dtype)}
 
 
@@ -251,7 +253,9 @@ def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, cache: dict
     d_inner, H, Pd, G, N = _dims(cfg)
     h_loc = p["wx"].shape[1]
     x_raw, bc_raw, z, dt = _proj_xbc(p, cfg, u)        # (B,1,·)
-    xbc = torch.cat([spmd.gather_model(x_raw, 2), bc_raw], dim=-1)
+    if h_loc < H:
+        x_raw = spmd.gather_model(x_raw, 2)
+    xbc = torch.cat([x_raw, bc_raw], dim=-1)
     hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
                      dim=1)                            # (B, K, C), whole
     conv_out = torch.einsum("bkc,kc->bc", hist, p["conv_w"]) + p["conv_b"]

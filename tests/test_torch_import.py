@@ -74,7 +74,8 @@ def test_port_has_every_slice_module():
               "repro_torch.optim.adamw", "repro_torch.optim.schedule",
               "repro_torch.launch.steps", "repro_torch.launch.train",
               "repro_torch.launch.mesh", "repro_torch.launch.hlo_analysis",
-              "repro_torch.models.spmd"):
+              "repro_torch.models.spmd", "repro_torch.launch.dryrun",
+              "repro_torch.launch.perf"):
         assert m in mods, m
     for src in ("gram.cu", "flash_attention.cu", "ssd.cu", "ridge_solve.cu",
                 "pearsonr.cu"):
@@ -222,6 +223,25 @@ def test_mesh_slice_imports_load_no_jax_and_no_repro():
             "repro_torch.models.spmd, repro_torch.models.params, "
             "repro_torch.convert\n"
             "from repro_torch.models.params import RULES, specs, abstract\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_dry_run_imports_load_no_jax_set_no_env_and_make_no_group():
+    """The dry run and perf import neither JAX nor the reference package;
+    importing them sets no environment variable (the reference's set
+    XLA_FLAGS) and makes no process group."""
+    code = ("import os, sys\n"
+            "before = dict(os.environ)\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.perf\n"
+            "import torch.distributed as dist\n"
+            "assert dict(os.environ) == before\n"
+            "assert not dist.is_initialized()\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -784,8 +784,12 @@ def phase_kernels_small() -> None:
         (150, 33, 17, [(0, 7), (7, 7), (7, 100), (100, 101), (101, 150)]),
         (9, 1, 300, [(0, 4), (4, 9)]),
     ]
-    xty_cases = [(64, 32, 48), (300, 129, 70), (1, 1, 1), (1037, 255, 130),
-                 (5000, 200, 7)]
+    # (n, p, q, y is x): ragged, narrow (q ≤ 32: the narrow tile), split-K.
+    xty_cases = [(64, 32, 48, False), (300, 129, 70, False), (1, 1, 1, False),
+                 (1037, 255, 130, False), (5000, 200, 7, False),
+                 (1000, 300, 1, False), (20000, 300, 300, True),
+                 (700, 33, 33, True), (2500, 20, 20, True)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
         for n, p, q, b in fold_cases:
@@ -802,16 +806,39 @@ def phase_kernels_small() -> None:
             print(f"[kernels] xty_folds n={n} p={p} q={q} k={len(b)} {dn}: "
                   f"max abs err {err:.3e} (against the split model "
                   f"{model:.3e}), repeated launch bitwise equal ok")
-        for n, p, q in xty_cases:
+        for n, p, q, same in xty_cases:
             x = torch.randn(n, p, device="cuda", generator=g).to(dt)
-            y = torch.randn(n, q, device="cuda", generator=g).to(dt)
-            err, _ = _compare(f"xty{(n, p, q)}", gram.xty(x, y),
-                              ref.xty(x, y), dn)
-            print(f"[kernels] xty n={n} p={p} q={q} {dn}: max abs err "
-                  f"{err:.3e} ok")
-    # m, p, q multiples of no tile of the split engine (128 × 192 × 32).
+            y = x if same else torch.randn(n, q, device="cuda",
+                                           generator=g).to(dt)
+            rows = gram.row_splits(n, p, q, sms)
+            got = gram.xty(x, y)
+            err, _ = _compare(f"xty{(n, p, q)}", got, ref.xty(x, y), dn)
+            check(torch.equal(got, gram.xty(x, y)),
+                  f"xty{(n, p, q)}: repeated launches differ")
+            model, _ = _compare(f"xty{(n, p, q)} against its split model",
+                                got, ref.xty_split(x, y, rows), dn)
+            print(f"[kernels] xty n={n} p={p} q={q}{' x is y' * same} {dn} "
+                  f"in {len(ref.split_ranges(n, rows))} row ranges: max abs err {err:.3e} "
+                  f"(against the split model {model:.3e}), repeated launch "
+                  f"bitwise equal ok")
+        # The dual XXᵀ's operand: a transposed view, read through its
+        # strides, bitwise equal to its contiguous copy; split-K forced
+        # (one range against eight) within tolerance of the one range.
+        xt = torch.randn(200, 3000, device="cuda", generator=g).to(dt).T
+        xc = xt.contiguous()
+        got = gram.xty(xt, xt)
+        check(torch.equal(got, gram.xty(xc, xc)),
+              "xty on a transposed view differs from its contiguous copy")
+        err, _ = _compare("xty split-K against one range",
+                          gram._xty_rows(xt, xt, 384),
+                          gram._xty_rows(xt, xt, 0), dn)
+        print(f"[kernels] xty on a transposed (3000, 200) view {dn}: bitwise "
+              f"equal to its contiguous copy; 8 row ranges against one: max "
+              f"abs err {err:.3e} ok")
+    # m, p, q multiples of no tile of the split engine (128 × 192 × 32);
+    # q = 17 on the narrow 32-column tile.
     masked_cases = [(203, 129, 70, 1), (1037, 255, 391, 2), (9, 1, 300, 3),
-                    (333, 131, 197, 2)]
+                    (333, 131, 197, 2), (203, 129, 17, 2)]
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).removeprefix("torch.")
         for m, p, q, s in masked_cases:
@@ -871,14 +898,24 @@ def phase_kernels_small() -> None:
         print(f"[kernels] xty_folds non-finite inputs {dn}: NaN where plain "
               f"NaN, non-finite where plain ±Inf, finite max abs err "
               f"{err:.3e} ok")
+        err = _nonfinite_rule("xty non-finite", gram.xty(x, y),
+                              ref.xty(x, y))
+        print(f"[kernels] xty non-finite inputs {dn}: NaN where plain NaN, "
+              f"non-finite where plain ±Inf, finite max abs err {err:.3e} ok")
     # The wrappers refuse what the kernel does not take.
     x = torch.randn(8, 4, device="cuda")
-    for bad in (x.T, x.double(), x.cpu()):
+    for bad in (x[None], x.double(), x.cpu()):
         try:
             gram.xty(bad, bad)
         except ValueError:
             continue
         raise RuntimeError("xty accepted an operand it must refuse")
+    try:
+        gram.xty_folds(x.T, x.T, [(0, 4)])
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("xty_folds accepted a transposed operand")
     w = torch.ones(8, 2, device="cuda")
     for bad in (w.T.contiguous(), w.bfloat16(), w[:7]):
         try:
@@ -986,47 +1023,102 @@ def phase_kernels_full(card: str, reps: int) -> dict:
           f"scratch for the largest fold) [{card}]")
     del X, Z
     free()
-    # Dual: XXᵀ on a contiguous Xᵀ, and Xᵀα, at the whole_brain_mor shape,
-    # each part measured on its own.  XXᵀ's 1,000² output takes the row
-    # split; the row loop's unsplit one-range launch is timed beside it, in
-    # turns (unsplit, split, split, unsplit).
+    # xty at the whole_brain_mor shape: the dual fit's XXᵀ on the transposed
+    # view of X (as ridge.xxt passes it, no copy) and Xᵀα, and MOR's
+    # single-target Xᵀα (q = 1: the narrow tile); then one seed-path fold
+    # Gram at the parcels shape (x is y).  Each: two launches bitwise
+    # equal, against the split model (the whole_brain_mor shapes; 1e-4 as
+    # the plain version), the plain version, torch.matmul and both bounds.
+    # XXᵀ's one range against its split-K, in turns (one, split, split,
+    # one).
     n, p, t = 1_000, 16_384, 2_000
     X = torch.randn(n, p, device="cuda", generator=g)
-    Xt = X.T.contiguous()
+    Xt = X.T
     alpha = torch.randn(n, t, device="cuda", generator=g)
+    a1 = alpha[:, :1].contiguous()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = gram.row_splits(p, n, n, sms)
-    check(len(splits) > 1 and gram.row_splits(n, p, t, sms) == [(0, n)],
-          f"row splits: XXᵀ {len(splits)}, Xᵀα "
-          f"{len(gram.row_splits(n, p, t, sms))}")
-    check(torch.equal(gram.xty(Xt, Xt), gram.xty(Xt, Xt)),
-          "two split xty launches on XXᵀ differ")
-    parts = [
-        _measure(f"xty XXt x=({p},{n}) in {len(splits)} row splits",
-                 gram.xty, ref.xty,
-                 lambda x, y: torch.matmul(x.T, y), (Xt, Xt), 2.0 * p * n * n,
-                 4.0 * (p * n + n * n), card, reps * 10),
-        _measure(f"xty Xt.alpha x=({n},{p}) y=({n},{t})",
-                 gram.xty, ref.xty, lambda x, y: torch.matmul(x.T, y),
-                 (X, alpha), 2.0 * n * p * t,
-                 4.0 * (n * p + n * t + p * t), card, reps * 10)]
-    unsplit = [(0, p)]
-    turns = []
-    for fn in (lambda: gram._launch(Xt, Xt, unsplit, "xty"),
-               lambda: gram.xty(Xt, Xt), lambda: gram.xty(Xt, Xt),
-               lambda: gram._launch(Xt, Xt, unsplit, "xty")):
-        turns.append(time_ms(fn, reps * 10))
-    one, split = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    print(f"[kernels] xty XXt: unsplit one-range launch {turns[0]:.3f}/"
-          f"{turns[3]:.3f} ms, {len(splits)} row splits {turns[1]:.3f}/"
-          f"{turns[2]:.3f} ms (×{one / split:.2f}); split launches bitwise "
-          f"equal [{card}]")
-    # One dual fit launches each once: the record sums the two shapes.
-    rec["xty"] = {key: sum(pt[key] for pt in parts)
-                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    rec["xty"]["bound_by"] = parts[0]["bound_by"]
-    rec["xty"]["max_abs_err"] = max(pt["max_abs_err"] for pt in parts)
-    del X, Xt, alpha
+    products = len(split_engine.pairs(*split_engine.folds_planes(X.dtype)))
+    check(gram.row_splits(p, n, n, sms) > 0
+          and gram.row_splits(n, p, t, sms) == 0,
+          f"rows a K range: XXᵀ {gram.row_splits(p, n, n, sms)}, Xᵀα "
+          f"{gram.row_splits(n, p, t, sms)}")
+    parts = {}
+    # Where x is y the output is symmetric: its upper triangle, n·p·(p+1)
+    # FLOPs for an (n, p) x, is all the function must compute.
+    for key, (x, y), flops, nbytes in (
+            ("XXt", (Xt, Xt), 1.0 * p * n * (n + 1), 4.0 * (p * n + n * n)),
+            ("Xt.alpha", (X, alpha), 2.0 * n * p * t,
+             4.0 * (n * p + n * t + p * t)),
+            ("Xt.alpha (MOR, one target)", (X, a1), 2.0 * n * p,
+             4.0 * (n * p + n + p))):
+        rows = gram.row_splits(x.shape[0], x.shape[1], y.shape[1], sms)
+        splits = len(ref.split_ranges(x.shape[0], rows))
+        got = gram.xty(x, y)
+        check(torch.equal(got, gram.xty(x, y)),
+              f"two xty launches on {key} differ")
+        model, _ = _compare(f"xty {key} against its split model", got,
+                            ref.xty_split(x, y, rows), "float32")
+        del got
+        parts[key] = _measure(
+            f"xty {key} x={tuple(x.shape)} y={tuple(y.shape)}"
+            f"{' (x is y)' * (x is y)} in {splits} row ranges",
+            gram.xty, ref.xty, lambda a, b: torch.matmul(a.T, b), (x, y),
+            flops, nbytes, card, reps * 10, products=products)
+        print(f"[kernels] xty {key}: two launches bitwise equal; against "
+              f"the split model of its {splits} row ranges max abs err "
+              f"{model:.3e} [{card}]")
+    splits = len(ref.split_ranges(p, gram.row_splits(p, n, n, sms)))
+    turns = [time_ms(fn, reps * 10) for fn in (
+        lambda: gram._xty_rows(Xt, Xt, 0),
+        lambda: gram.xty(Xt, Xt), lambda: gram.xty(Xt, Xt),
+        lambda: gram._xty_rows(Xt, Xt, 0))]
+    t_one, t_split = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"[kernels] xty XXt on the engine: one range {turns[0]:.3f}/"
+          f"{turns[3]:.3f} ms, split-K over {splits} row ranges "
+          f"{turns[1]:.3f}/{turns[2]:.3f} ms (×{t_one / t_split:.2f}) "
+          f"[{card}]")
+    # The sweep behind row_splits' model: XXᵀ over S ranges of whole
+    # 32-row stages, S = 1 … 64.
+    by_s = {}
+    for s_ in (1, 2, 3, 4, 5, 6, 8, 11, 16, 22, 32, 64):
+        rows = -(-p // (32 * s_)) * 32 if s_ > 1 else 0
+        by_s[len(ref.split_ranges(p, rows))] = time_ms(
+            lambda: gram._xty_rows(Xt, Xt, rows), reps * 10)
+    print("[kernels] xty XXt ms by row ranges: " + ", ".join(
+        f"{k_} {v:.3f}" for k_, v in by_s.items())
+        + f"; row_splits picks {splits} [{card}]")
+    # One dual fit launches XXᵀ and Xᵀα once each: the record sums them.
+    pair = [parts["XXt"], parts["Xt.alpha"]]
+    rec["xty"] = {key: sum(pt[key] for pt in pair)
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_f32_ms")}
+    rec["xty"]["bound_by"] = pair[0]["bound_by"]
+    rec["xty"]["max_abs_err"] = max(pt["max_abs_err"] for pt in pair)
+    del X, Xt, alpha, a1
+    free()
+    # The seed path's fold Gram: the training rows of one of 5 folds of the
+    # parcels fit, x is y; repeats kept low (a launch takes ~0.3 s).
+    w = complexity.PAPER_WORKLOADS["parcels"]
+    lo, hi = fold_bounds(w.n, EncoderConfig().n_folds)[0]
+    n = w.n - (hi - lo)
+    X = torch.randn(n, w.p, device="cuda", generator=g)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    first = gram.gram(X)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    check(torch.equal(first, gram.gram(X)),
+          "two xty launches on the fold Gram differ")
+    del first
+    free()
+    rec["xty_gram"] = _measure(
+        f"xty fold Gram x=({n},{w.p}) (x is y)", gram.xty, ref.xty,
+        lambda a, b: torch.matmul(a.T, b), (X, X), 1.0 * n * w.p * (w.p + 1),
+        4.0 * (n * w.p + w.p * w.p), card, 1, products=products)
+    print(f"[kernels] xty fold Gram: two launches bitwise equal; one launch "
+          f"allocates {extra / 2**30:.2f} GiB (output and one split for "
+          f"both sides) [{card}]")
+    del X
     free()
     # Streamed: one chunk update of phase 6 — the 8,192 rows at 8,192..16,383
     # of the parcels training rows, which straddle the fold-0/fold-1 bound.
@@ -2234,12 +2326,25 @@ def phase_seed_primal(card: str) -> int:
             first.update(args=(q, evals, a, lambdas), out=out)
         return out
 
-    # The entry point's run is also its split by stage (_seed_stages).
+    # The entry point's run is also its split by stage (_seed_stages); the
+    # Grams inside factorize are timed on their own besides.
     stages, sec, calls = _seed_stages(ridge, cfg.n_folds)
+    gram_s = []
+    gram_fn = ops.gram
+
+    def timed_gram(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gram_fn(x)
+        torch.cuda.synchronize()
+        gram_s.append(time.perf_counter() - t0)
+        return out
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
-    with _patched((ops, "solve_lambda_grid", keep_first), *stages):
+    with _patched((ops, "solve_lambda_grid", keep_first),
+                  (ops, "gram", timed_gram), *stages):
         t0 = time.perf_counter()
         seed = ridge.ridge_cv_reference(X, Y, cfg)
         torch.cuda.synchronize()
@@ -2297,6 +2402,15 @@ def phase_seed_primal(card: str) -> int:
                                    "score"), cfg.n_folds), "refit": 3}
     check(calls == want_calls, f"the split saw calls {calls}, want "
           f"{want_calls}")
+    check(len(gram_s) == cfg.n_folds + 1, f"{len(gram_s)} Grams timed")
+    folds_gram = sum(gram_s[:cfg.n_folds])
+    print(f"[seed-primal] the Grams apart (xty, x is y, on the split-bf16 "
+          f"engine): gram+eigh {sec['gram+eigh']:.2f} s = {cfg.n_folds} fold "
+          f"Grams {folds_gram:.2f} s (" + ", ".join(
+              f"{v:.3f}" for v in gram_s[:cfg.n_folds])
+          + f") + eigh and the rest {sec['gram+eigh'] - folds_gram:.2f} s; "
+          f"the refit's Gram {gram_s[-1]:.3f} s of its {sec['refit']:.2f} s "
+          f"[{card}]")
     check(rest >= 0.0, f"the timed steps took {sum(sec.values()):.2f} s of "
           f"a {seed_s:.2f} s run")
     del X, Y, seed, new
@@ -5166,17 +5280,17 @@ def phase_dry_run(card: str, h: dict | None = None) -> None:
 
 def _selected(argv: list[str]) -> set[int] | None:
     """``--only 14,16`` runs phase 1 and the listed independent phases
-    (6 and 12 to 21) and prints no result lines: a quick check while
-    working on them.  With no arguments every phase runs."""
+    (2, 4 with 5, 6, 11 and 12 to 21) and prints no result lines: a quick
+    check while working on them.  With no arguments every phase runs."""
     if not argv:
         return None
     if len(argv) != 2 or argv[0] != "--only":
         raise SystemExit("usage: chip_smoke.py [--only N[,N...]] "
-                         "(N in 6, 12..21)")
+                         "(N in 2, 4, 6, 11, 12..21)")
     only = {int(v) for v in argv[1].split(",")}
-    if not only <= {6, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21}:
-        raise SystemExit(f"--only takes phases 6 and 12 to 21, got "
-                         f"{sorted(only)}")
+    if not only <= {2, 4, 6, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21}:
+        raise SystemExit(f"--only takes phases 2, 4, 6, 11 and 12 to 21, "
+                         f"got {sorted(only)}")
     return only
 
 
@@ -5195,7 +5309,13 @@ def main(argv: list[str]) -> int:
     env = phase_env()
     card = env["card"]
     if only is not None:
-        for n, phase in ((6, phase_streamed), (12, phase_wholebrain),
+        for n, phase in ((2, lambda c: (phase_kernels_small(),
+                                        phase_kernels_full(c, reps=3))),
+                         (4, lambda c: (phase_dual(c), phase_paths())),
+                         (6, phase_streamed),
+                         (11, lambda c: (phase_seed_primal(c),
+                                         phase_seed_dual(c))),
+                         (12, phase_wholebrain),
                          (13, phase_wholebrain_parity),
                          (14, phase_mor), (15, phase_banded),
                          (16, phase_serving), (17, phase_drivers),
@@ -5284,7 +5404,7 @@ def main(argv: list[str]) -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"xty_folds": ("split_engine.cu",
                            "src/repro/kernels/gram.py:158"),
-             "xty": ("gram.cu", "src/repro/kernels/gram.py:72"),
+             "xty": ("split_engine.cu", "src/repro/kernels/gram.py:72"),
              "xty_folds_masked": ("split_engine.cu",
                                   "src/repro/kernels/gram.py:233"),
              "flash_attention": ("flash_attention.cu",

@@ -82,20 +82,20 @@ def gram_xty(X: torch.Tensor, Y: torch.Tensor, *,
     """``XᵀY`` with f32 accumulation (kernel-routable)."""
     if use_pallas:
         dt = torch.promote_types(X.dtype, Y.dtype)
-        return ops.xty(X.to(dt).contiguous(), Y.to(dt).contiguous())
+        return ops.xty(X.to(dt), Y.to(dt))
     return ref.xty(X, Y)
 
 
 def xxt(X: torch.Tensor, *, use_pallas: bool = False) -> torch.Tensor:
     """``XXᵀ`` (the dual kernel matrix) with f32 accumulation.
 
-    The kernel route runs the cross-Gram kernel on a contiguous copy of
-    ``Xᵀ``: ``(Xᵀ)ᵀ(Xᵀ) = XXᵀ``.
+    The kernel route runs the cross-Gram kernel on the transposed view
+    ``Xᵀ``, read through its strides (no copy): ``(Xᵀ)ᵀ(Xᵀ) = XXᵀ``.
     """
+    Xt = X.T
     if use_pallas:
-        Xt = X.T.contiguous()
         return ops.xty(Xt, Xt)
-    return ref.xty(X.T, X.T)
+    return ref.xty(Xt, Xt)
 
 
 def factorize(X: torch.Tensor, cfg: RidgeCVConfig) -> RidgeFactors:
@@ -108,7 +108,7 @@ def factorize(X: torch.Tensor, cfg: RidgeCVConfig) -> RidgeFactors:
     """
     n, p = X.shape
     if cfg.resolve_method(n, p) == "eigh":
-        G = ops.gram(X.contiguous()) if cfg.use_pallas else gram(X)
+        G = ops.gram(X) if cfg.use_pallas else gram(X)
         primal = True
     else:
         G = xxt(X, use_pallas=cfg.use_pallas)

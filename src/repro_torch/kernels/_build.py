@@ -104,11 +104,12 @@ def load() -> ctypes.CDLL:
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name in ("repro_xty_rows_f32", "repro_xty_rows_bf16"):
+    for name in ("repro_xty_f32", "repro_xty_bf16"):
         fn = getattr(lib, name)
-        # x, y, bounds (host int64 k×2), out, p, q, k, device, stream
-        fn.argtypes = [ptr, ptr, ctypes.POINTER(i64), ptr, i64, i64, i32, i32,
-                       ptr]
+        # x, x strides (2), y, y strides (2), same, scratch_a, scratch_b,
+        # part, out, n, p, q, split_rows, device, stream
+        fn.argtypes = [ptr, i64, i64, ptr, i64, i64, i32, ptr, ptr, ptr, ptr,
+                       i64, i64, i64, i64, i32, ptr]
         fn.restype = i32
     for name in ("repro_xty_folds_f32", "repro_xty_folds_bf16"):
         fn = getattr(lib, name)
@@ -148,9 +149,6 @@ def load() -> ctypes.CDLL:
         # y_true, y_pred, partial, out, n, t, splits, device, stream
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
         fn.restype = i32
-    # part, out, count, splits, device, stream
-    lib.repro_xty_split_sum.argtypes = [ptr, ptr, i64, i32, i32, ptr]
-    lib.repro_xty_split_sum.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

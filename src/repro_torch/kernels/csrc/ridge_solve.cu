@@ -76,14 +76,15 @@ int launch(bool bf16, const void* q, long long sq0, long long sq1,
                                     0, 0, bf16 ? 1 : 3, scratch_a};
   const split_engine::Operand ab = {a, bf16, t, 1, cols, t, scales,
                                     false, 1, p, 3, scratch_b};
+  const int bn = split_engine::tile_n(cols);
   if (err == cudaSuccess)
     err = split_engine::split(qa, split_engine::kBM, p, s);
-  if (err == cudaSuccess)
-    err = split_engine::split(ab, split_engine::kBN, p, s);
-  if (err == cudaSuccess)
-    err = split_engine::product(scratch_a, qa.planes, scratch_b, ab.planes, p,
-                                cols, p, static_cast<float*>(out), t, t,
-                                p * t, s);
+  if (err == cudaSuccess) err = split_engine::split(ab, bn, p, s);
+  const split_engine::Product pr = {
+      scratch_a, qa.planes, split_engine::padded(p, split_engine::kBM),
+      scratch_b, ab.planes, split_engine::padded(cols, bn), p, cols, p, 0,
+      static_cast<float*>(out), t, t, p * t, 0};
+  if (err == cudaSuccess) err = split_engine::product(pr, s);
   return static_cast<int>(err);
 }
 

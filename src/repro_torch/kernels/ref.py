@@ -135,6 +135,28 @@ def xty_folds_split(x: torch.Tensor, y: torch.Tensor,
                                       na, nb) for lo, hi in bounds])
 
 
+def split_ranges(n: int, rows: int) -> list[tuple[int, int]]:
+    """The K ranges of ``xty``'s split-K: runs of ``rows`` rows (the last
+    takes the rest) covering ``[0, n)``; ``[(0, n)]`` where ``rows`` is 0
+    (``gram.row_splits``' one range)."""
+    if rows <= 0 or rows >= n:
+        return [(0, n)]
+    return [(lo, min(lo + rows, n)) for lo in range(0, n, rows)]
+
+
+def xty_split(x: torch.Tensor, y: torch.Tensor, rows: int) -> torch.Tensor:
+    """``xty`` by the engine's arithmetic: per K range of ``rows`` rows
+    (``gram.row_splits``; 0 for one range), ``x[lo:hi]`` and ``y[lo:hi]``
+    split by ``split_engine.folds_planes`` and their kept pairs' products
+    summed (``xty_folds_split``), then the partials added in split order,
+    as ``xty``'s sum kernel does → (p, q) f32."""
+    parts = xty_folds_split(x, y, split_ranges(x.shape[0], rows))
+    out = parts[0].clone()
+    for part in parts[1:]:
+        out += part
+    return out
+
+
 def solve_lambda_grid_split(q: torch.Tensor, evals: torch.Tensor,
                             a: torch.Tensor,
                             lambdas: torch.Tensor) -> torch.Tensor:

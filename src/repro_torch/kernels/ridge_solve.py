@@ -83,8 +83,8 @@ def solve_lambda_grid(q: torch.Tensor, evals: torch.Tensor, a: torch.Tensor,
     scales = torch.empty((r, p), dtype=torch.float32, device=q.device)
     na, nb = split_engine.solve_planes(q.dtype)
     scratch_a = split_engine.scratch(p, p, na, split_engine.TILE_M, q.device)
-    scratch_b = split_engine.scratch(r * t, p, nb, split_engine.TILE_N,
-                                     q.device)
+    scratch_b = split_engine.scratch(r * t, p, nb,
+                                     split_engine.tile_n(r * t), q.device)
     lib = _build.load()
     fn = (lib.repro_solve_lambda_grid_f32 if q.dtype == torch.float32
           else lib.repro_solve_lambda_grid_bf16)

@@ -19,9 +19,11 @@ import torch
 from repro.core import foldstats as jfoldstats
 from repro.kernels import gram as jgram
 from repro.kernels import ref as jref
+from repro_torch.core import ridge
 from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import split_engine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -176,58 +178,129 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
         _build._headers.cache_clear()
 
 
+# The ranges row_splits picks at the split shapes below: the fewest with
+# the least modelled time (chip_smoke.py's phase 2 times XXᵀ over S ranges
+# on a card).
+SPLITS = {(16_384, 1_000, 1_000): 8, (20_000, 300, 300): 22,
+          (1_037, 255, 130): 5}
+
+
 @pytest.mark.parametrize("n,p,q,split", [
-    (16_384, 1_000, 1_000, True),     # the dual fit's XXᵀ: 64 tiles
-    (20_000, 300, 300, True),         # 9 tiles
-    (1_037, 255, 130, True),          # 4 tiles, only 1,037 rows
+    (16_384, 1_000, 1_000, True),     # the dual fit's XXᵀ: 8 × 6 = 48 tiles
+    (20_000, 300, 300, True),         # 3 × 2 tiles
+    (1_037, 255, 130, True),          # 2 tiles, only 33 stages
     (69_202, 16_384, 16_828, False),  # the primal Gram: a full grid
-    (1_000, 16_384, 2_000, False),    # the dual Xᵀα: 2,048 tiles
-    (200, 10, 10, False),             # too few rows to split
+    (1_000, 16_384, 2_000, False),    # the dual Xᵀα: 128 × 11 tiles
+    (200, 10, 10, False),             # 7 stages: too few rows to split
     (0, 5, 5, False),
 ])
 def test_xty_row_splits_rule(n, p, q, split):
-    tiles = -(-p // 128) * -(-q // 128)
-    got = tgram.row_splits(n, p, q)
+    tiles = -(-p // 128) * -(-q // split_engine.tile_n(q))
+    rows = tgram.row_splits(n, p, q)
+    got = tref.split_ranges(n, rows)
+    assert len(got) == SPLITS.get((n, p, q), 1)
     assert (len(got) > 1) == split
     assert got[0][0] == 0 and got[-1][1] == n
     assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
     assert len(got) <= 64
     if split:
-        assert all(hi - lo >= 256 for lo, hi in got)
-        assert max(hi - lo for lo, hi in got) \
-            - min(hi - lo for lo, hi in got) <= 1
-        assert tiles * len(got) >= 2 * 132 or len(got) == n // 256
+        # Whole 32-row stages, one length, at least 256 rows; the last
+        # range takes the rest.  Only an output of fewer tiles than SMs.
+        assert rows % 32 == 0 and rows >= 256
+        assert all(hi - lo == rows for lo, hi in got[:-1])
+        assert 0 < got[-1][1] - got[-1][0] <= rows
+        assert tiles < 132
     else:
-        assert got == [(0, n)]
-    # Fewer SMs → fewer splits; a card with 4× the SMs never fewer.
-    assert len(tgram.row_splits(n, p, q, sms=33)) <= len(got) \
-        <= len(tgram.row_splits(n, p, q, sms=528))
+        assert rows == 0 and got == [(0, n)]
+    # Fewer SMs → fewer ranges; a card with 4× the SMs never fewer.
+    assert len(tref.split_ranges(n, tgram.row_splits(n, p, q, sms=33))) \
+        <= len(got) \
+        <= len(tref.split_ranges(n, tgram.row_splits(n, p, q, sms=528)))
+
+
+@pytest.mark.parametrize("n,rows,want", [
+    (300, 0, [(0, 300)]),                  # one range
+    (300, 256, [(0, 256), (256, 300)]),    # the last takes the rest
+    (300, 300, [(0, 300)]),                # a range of all rows: one
+    (96, 32, [(0, 32), (32, 64), (64, 96)]),
+    (0, 0, [(0, 0)]),
+])
+def test_split_ranges_cover_the_rows(n, rows, want):
+    assert tref.split_ranges(n, rows) == want
+
+
+@pytest.mark.parametrize("n,p,q,same,dtype,want", [
+    # A seed-path fold Gram at parcels (x is y: one split, rows padded to
+    # 384 for both tiles; 5.49 GB), the refit's (6.86 GB), bf16.
+    (55_361, 16_384, 16_384, True, "float32", (3 * 16_512 * 55_392, 0)),
+    (69_202, 16_384, 16_384, True, "float32", (3 * 16_512 * 69_216, 0)),
+    (55_361, 16_384, 16_384, True, "bfloat16", (16_512 * 55_392, 0)),
+    # The dual XXᵀ (x the transposed 16,384 × 1,000 view), Xᵀα and MOR's
+    # single-target Xᵀα (the narrow 32-column tile).
+    (16_384, 1_000, 1_000, True, "float32", (3 * 1_152 * 16_384, 0)),
+    (1_000, 16_384, 2_000, False, "float32",
+     (3 * 16_384 * 1_024, 3 * 2_112 * 1_024)),
+    (1_000, 16_384, 1, False, "float32", (3 * 16_384 * 1_024, 3 * 32 * 1_024)),
+])
+def test_xty_scratch_at_the_main_shapes(n, p, q, same, dtype, want):
+    assert tgram._xty_scratch_numel(n, p, q, getattr(torch, dtype),
+                                    same) == want
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_xty_row_split_matches_plain_version(dtype):
-    """A narrow output over many rows takes the split path: equal to the
-    plain version, and repeated launches are bitwise equal."""
+    """xty against the plain version and its split model: a narrow output
+    over many rows (split-K), x is y, q = 1 (the narrow tile), a
+    transposed view (bitwise equal to its contiguous copy); repeated
+    launches bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
     g = torch.Generator("cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     tgram.reset_launches()
-    for n, p, q in [(20_000, 300, 300), (16_384, 1_000, 1_000),
-                    (5_003, 129, 7)]:
+    calls = 0
+    for n, p, q, same in [(20_000, 300, 300, True), (16_384, 1_000, 1_000,
+                                                       True),
+                          (5_003, 129, 7, False), (1_000, 300, 1, False),
+                          (777, 150, 150, True)]:
         x = torch.randn(n, p, device="cuda", generator=g).to(dt)
-        y = x if p == q else torch.randn(n, q, device="cuda",
-                                         generator=g).to(dt)
-        assert len(tgram.row_splits(n, p, q, torch.cuda.get_device_properties(
-            0).multi_processor_count)) > 1
+        if p == 1_000:
+            x = x.T.contiguous().T      # the dual XXᵀ's transposed view
+        y = x if same else torch.randn(n, q, device="cuda",
+                                       generator=g).to(dt)
+        rows = tgram.row_splits(n, p, q, sms)
         got = tgram.xty(x, y)
         want = tref.xty(x, y)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 *
                                    want.abs().max().item())
+        model = tref.xty_split(x, y, rows)
+        torch.testing.assert_close(got, model, rtol=1e-5, atol=1e-5 *
+                                   model.abs().max().item())
         assert torch.equal(got, tgram.xty(x, y))
-    assert tgram.LAUNCHES == {"xty": 6, "xty_folds": 0,
+        calls += 2
+        if not x.is_contiguous():
+            xc = x.contiguous()
+            assert torch.equal(got, tgram.xty(xc, xc))
+            calls += 1
+    assert tgram.LAUNCHES == {"xty": calls, "xty_folds": 0,
                               "xty_folds_masked": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_xxt_reads_the_transposed_view_without_a_copy():
+    """ridge.xxt hands xty the view Xᵀ: bitwise what a contiguous copy of
+    Xᵀ gives, one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator("cuda").manual_seed(4)
+    X = torch.randn(300, 2_000, device="cuda", generator=g)
+    tgram.reset_launches()
+    got = ridge.xxt(X, use_pallas=True)
+    assert tgram.LAUNCHES["xty"] == 1
+    Xt = X.T.contiguous()
+    assert torch.equal(got, tgram.xty(Xt, Xt))
 
 
 @pytest.mark.cuda
@@ -248,5 +321,8 @@ def test_cuda_kernels_match_plain_versions(dtype):
     got = tgram.xty(x, y)
     torch.testing.assert_close(got, tref.xty(x, y), rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
+    model = tref.xty_split(x, y, tgram.row_splits(1037, 255, 391))
+    torch.testing.assert_close(got, model, rtol=1e-5,
+                               atol=1e-5 * model.abs().max().item())
     assert tgram.LAUNCHES == {"xty": 1, "xty_folds": 1,
                               "xty_folds_masked": 0}

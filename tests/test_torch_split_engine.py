@@ -165,6 +165,52 @@ def test_folds_split_model_matches_pallas_interpret(n, p, q, bounds, dtype):
             assert not got[f].any()
 
 
+# xty: (n, p, q, y is x, S row ranges): ragged, q = 1 (the narrow tile), x
+# is y (one split for both sides), one range and several.
+XTY_CASES = [(203, 24, 17, False, 1), (300, 129, 70, False, 3),
+             (97, 33, 1, False, 1), (1000, 5, 1, False, 4),
+             (250, 40, 40, True, 1), (700, 33, 33, True, 3)]
+
+
+def _rows(n, s):
+    """Rows a range of S ranges of whole 32-row stages (0 for one)."""
+    rows = -(-n // (32 * s)) * 32 if s > 1 else 0
+    assert len(tref.split_ranges(n, rows)) == s
+    return rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,p,q,same,s", XTY_CASES)
+def test_xty_split_model_matches_pallas_interpret_and_ref(n, p, q, same, s,
+                                                          dtype):
+    x, y = _fold_inputs(n, p, q, n + p + q)
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt)
+    ty = tx if same else torch.from_numpy(y).to(tdt)
+    got = tref.xty_split(tx, ty, _rows(n, s))
+    assert got.dtype == torch.float32 and got.shape == (p, q)
+    jx = jnp.asarray(x, dtype)
+    jy = jx if same else jnp.asarray(y, dtype)
+    for want in (np.asarray(jgram.xty(jx, jy, block_n=128, block_p=128,
+                                      interpret=True)),
+                 tref.xty(tx, ty).numpy()):
+        tol = (_tol(dtype) if dtype == "bfloat16"
+               else dict(rtol=1e-4, atol=1e-4 * np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xty_split_model_within_f64_bound(dtype):
+    tdt = getattr(torch, dtype)
+    x, y = _fold_inputs(600, 20, 30, 10, scales=True)
+    tx, ty = torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt)
+    got = tref.xty_split(tx, ty, _rows(600, 3)).double().numpy()
+    x64, y64 = tx.double().numpy(), ty.double().numpy()
+    # The three partials' f32 sums and their sum: K + 8 + 2 roundings.
+    err = np.abs(got - x64.T @ y64)
+    assert (err <= _bound(x64, y64, 602)).all()
+
+
 # ---------------------------------------------------------------------------
 # The model against f64, within the split's error bound
 # ---------------------------------------------------------------------------
@@ -305,6 +351,19 @@ def test_folds_split_model_follows_the_nonfinite_rule(dtype):
     assert torch.isfinite(got[1]).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xty_split_model_follows_the_nonfinite_rule(dtype):
+    tdt = getattr(torch, dtype)
+    x, y = _fold_inputs(300, 6, 9, 15)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    tx[4, 2] = float("nan")
+    ty[230, 5] = float("inf")
+    tx, ty = tx.to(tdt), ty.to(tdt)
+    want = tref.xty(tx, ty)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    assert_nonfinite_rule(tref.xty_split(tx, ty, _rows(300, 3)), want)
+
+
 def test_masked_split_model_keeps_an_all_zero_slot_exactly_zero():
     x, z, w = _masked_inputs(50, 7, 11, 3, "real", 13)
     w[:, 1] = 0.0
@@ -355,10 +414,20 @@ def test_host_tiles_are_the_kernels():
     """The wrapper sizes scratch with the tiles the CUDA source uses."""
     src = (Path(split_engine.__file__).parent / "csrc"
            / "split_engine.cuh").read_text()
-    tiles = dict(re.findall(r"constexpr int (kB[MNK]) = (\d+);", src))
+    tiles = dict(re.findall(r"constexpr int (kB[MNK]\w*) = (\d+);", src))
     assert tiles == {"kBM": str(split_engine.TILE_M),
                      "kBN": str(split_engine.TILE_N),
+                     "kBNNarrow": str(split_engine.TILE_N_NARROW),
                      "kBK": str(split_engine.STAGE_K)}
+
+
+def test_narrow_and_shared_tiles():
+    """The B side's tile narrows to 32 columns at N ≤ 32 (MOR's q = 1);
+    planes both sides read are padded for the 128-row tile and it."""
+    assert [split_engine.tile_n(n) for n in (1, 32, 33, 192, 16_384)] == \
+        [32, 32, 192, 192, 192]
+    assert split_engine.shared_tile(1_000) == 384
+    assert split_engine.shared_tile(20) == 128
 
 
 # ---------------------------------------------------------------------------
@@ -374,12 +443,15 @@ def test_cuda_split_kernels_match_the_split_model(dtype):
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
     g = torch.Generator("cuda").manual_seed(5)
-    x = torch.randn(333, 129, device="cuda", generator=g).to(dt)
-    z = torch.randn(333, 257, device="cuda", generator=g).to(dt)
-    w = torch.rand(333, 2, device="cuda", generator=g).to(dt)
-    want = tref.xty_folds_masked_split(x, z, w)
-    torch.testing.assert_close(tgram.xty_folds_masked(x, z, w), want,
-                               rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    # q = 257 on the 192-column tile, q = 17 on the narrow 32-column one.
+    for m, p, q, s in ((333, 129, 257, 2), (203, 129, 17, 2)):
+        x = torch.randn(m, p, device="cuda", generator=g).to(dt)
+        z = torch.randn(m, q, device="cuda", generator=g).to(dt)
+        w = torch.rand(m, s, device="cuda", generator=g).to(dt)
+        want = tref.xty_folds_masked_split(x, z, w)
+        torch.testing.assert_close(tgram.xty_folds_masked(x, z, w), want,
+                                   rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
     q, evals, a, lams = (torch.from_numpy(v).cuda()
                          for v in _solve_inputs(161, 445, 3, 7))
     q, a = q.T.contiguous().T.to(dt), a.to(dt)
@@ -413,3 +485,22 @@ def test_cuda_xty_folds_matches_split_model(dtype):
     assert not got[1].any()
     assert torch.equal(got, tgram.xty_folds(x, y, bounds))
     assert tgram.LAUNCHES["xty_folds"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_xty_follows_the_nonfinite_rule(dtype):
+    """xty on the engine, one range and split-K: NaN where the plain
+    version is NaN, non-finite where it is ±Inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tdt = getattr(torch, dtype)
+    x, y = _fold_inputs(3000, 6, 9, 16)
+    tx, ty = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    tx[4, 2] = float("nan")
+    ty[2300, 5] = float("inf")
+    tx, ty = tx.to(tdt), ty.to(tdt)
+    want = tref.xty(tx, ty)
+    assert tgram.row_splits(3000, 6, 9) > 0
+    assert_nonfinite_rule(tgram.xty(tx, ty), want)
+    assert_nonfinite_rule(tgram._xty_rows(tx, ty, 0), want)

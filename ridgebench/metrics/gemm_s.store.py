@@ -1,0 +1,8 @@
+"""``gemm_s.store`` (s, moves ``fit_s.store``): device time a fit fed from
+a run store of the kernels launched under an ``aten`` matrix product
+outside ``eigh``: the scoring, projection and refit products."""
+
+
+def read(ctx):
+    sec = ctx.trace.layers.get("products", 0.0)
+    return sec / len(ctx.fits) if sec > 0 else None

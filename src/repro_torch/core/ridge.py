@@ -240,29 +240,45 @@ def _fold_scores(Bv: torch.Tensor, A: torch.Tensor, Y_val: torch.Tensor,
 def _ridge_cv_primal(X: torch.Tensor, Y: torch.Tensor,
                      cfg: RidgeCVConfig) -> RidgeCVResult:
     """Primal CV on downdated fold statistics — one Gram pass total, one
-    ``eigh`` per split and one for the refit on ``G_total``/``C_total``."""
+    ``eigh`` per split and one for the refit on ``G_total``/``C_total``.
+
+    Its leaf spans (``fit.primal.stats``, ``.eigh``, ``.score``,
+    ``.solve``) force their work while a tracer is installed
+    (``sync_if_traced``), so each records compute, not the enqueue."""
     n, p = X.shape
+    device = X.device
     bounds = foldstats.fold_bounds(n, cfg.n_folds)
-    stats = foldstats.compute(X, Y, cfg.n_folds, use_pallas=cfg.use_pallas)
-    eye = cfg.jitter * torch.eye(p, dtype=torch.float32, device=X.device)
-    lams = _lambda_grid(cfg, X.device)
+    with obs.span("fit.primal.stats", n=n, p=p):
+        stats = foldstats.compute(X, Y, cfg.n_folds,
+                                  use_pallas=cfg.use_pallas)
+        sync_if_traced(device)
+    eye = cfg.jitter * torch.eye(p, dtype=torch.float32, device=device)
+    lams = _lambda_grid(cfg, device)
     per_lambda_scores = []
     for f, (lo, hi) in enumerate(bounds):
-        G_tr, C_tr = stats.train(f)                   # Gram downdate (exact)
-        evals, Q = torch.linalg.eigh(G_tr + eye)      # per-split eigh
-        del G_tr
-        A = torch.matmul(Q.T, C_tr)
-        Bv = torch.matmul(X[lo:hi].float(), Q)
-        del Q
-        per_lambda_scores.append(
-            _fold_scores(Bv, A, Y[lo:hi], evals, lams, cfg.scoring))
+        with obs.span("fit.primal.eigh", fold=f, p=p):
+            G_tr, C_tr = stats.train(f)               # Gram downdate (exact)
+            evals, Q = torch.linalg.eigh(G_tr + eye)  # per-split eigh
+            del G_tr
+            sync_if_traced(device)
+        with obs.span("fit.primal.score", fold=f, p=p):
+            A = torch.matmul(Q.T, C_tr)
+            Bv = torch.matmul(X[lo:hi].float(), Q)
+            del Q
+            per_lambda_scores.append(
+                _fold_scores(Bv, A, Y[lo:hi], evals, lams, cfg.scoring))
+            sync_if_traced(device)
     cv_scores = torch.stack(per_lambda_scores).mean(0)              # (r,)
     best = torch.argmax(cv_scores)
     # Refit on the full data: the summed fold statistics ARE the full-data
     # Gram/cross-covariance — no second pass over the rows.
-    evals, Q = torch.linalg.eigh(stats.G_total + eye)
-    factors = RidgeFactors(basis=Q, evals=evals, primal=True)
-    W = solve(factors, stats.C_total, lams[best])
+    with obs.span("fit.primal.eigh", fold="refit", p=p):
+        evals, Q = torch.linalg.eigh(stats.G_total + eye)
+        sync_if_traced(device)
+    with obs.span("fit.primal.solve", p=p):
+        factors = RidgeFactors(basis=Q, evals=evals, primal=True)
+        W = solve(factors, stats.C_total, lams[best])
+        sync_if_traced(device)
     return RidgeCVResult(weights=W, best_lambda=lams[best], best_index=best,
                          cv_scores=cv_scores)
 

@@ -200,6 +200,10 @@ class BrainEncoder:
                 X = as_tensor(X, self.device)
                 Y = as_tensor(Y, self.device)
             fitter = getattr(self, f"_fit_{decision.solver}")
+            # No synchronise of its own: on the primal path the span ends
+            # just after its last leaf, ``fit.primal.solve``, which forces
+            # the card's work while a tracer is installed; on the other
+            # solvers it may close on the enqueue.
             with obs.span("fit.solve", solver=decision.solver):
                 self.report_ = fitter(X, Y, decision)
             return self

@@ -4,11 +4,11 @@ Port of ``repro/obs``: the same spans, instruments, snapshot schema and
 strict-mode variable, so a trace or snapshot from either package reads
 the same.
 
-Zero-dependency (stdlib only), disabled by default, and shared by every
-tier: the fit path (``BrainEncoder``/``foldstats``), the streaming tier
-(``ChunkPrefetcher``), the whole-brain column-blocked driver, and the
-serving fleet (``EncoderService``/``EncoderRegistry``/``FleetFrontend``)
-all emit through the SAME three primitives instead of bespoke stat dicts:
+Disabled by default (stdlib, plus torch's profiler hooks in the spans),
+and shared by every tier: the fit path (``BrainEncoder``/``foldstats``),
+the streaming tier (``ChunkPrefetcher``), the whole-brain column-blocked
+driver, and the serving fleet
+(``EncoderService``/``EncoderRegistry``/``FleetFrontend``) all emit through the SAME three primitives instead of bespoke stat dicts:
 
 * **Spans** — ``with obs.span("fit.stats", bytes=n): ...`` nests, is
   thread-safe, stamps a monotonic clock, and exports to JSONL or
@@ -18,7 +18,9 @@ all emit through the SAME three primitives instead of bespoke stat dicts:
   ``obs.timed`` additionally ALWAYS measures (the streaming tier derives
   ``PrefetchStats`` stall seconds from the same measurement the span
   records).  ``obs.instant`` records zero-duration markers
-  (admit/reject/hit).
+  (admit/reject/hit).  While ``torch.profiler`` runs, ``span`` and
+  ``timed`` also open a profiler range of the span's name, tracer or
+  not (below).
 * **Metrics** — ``obs.get_metrics()`` returns the process-global
   :class:`~repro_torch.obs.metrics.MetricsRegistry`; ``obs.snapshot()`` renders
   every counter/gauge/histogram into one JSON dict (schema below) whose
@@ -39,6 +41,15 @@ Span naming convention: dotted ``<tier>.<phase>[.<subphase>]`` —
 ``wholebrain.block`` / ``wholebrain.xstats``, ``serve.wave.build`` /
 ``serve.wave.execute``, ``registry.load`` / ``registry.evict`` /
 ``registry.hit``, ``fleet.admit`` / ``fleet.reject`` / ``fleet.flush``.
+The port adds leaf spans that name the work between kernels, each under
+a span the reference has: the in-memory primal fit's
+``fit.primal.stats`` / ``fit.primal.eigh`` (each fold's and the refit's)
+/ ``fit.primal.score`` / ``fit.primal.solve``, and the whole-brain
+fit's ``wholebrain.score`` / ``wholebrain.project`` /
+``wholebrain.weights_emit`` (the host weight matrix or the writer) and
+``wholebrain.scratch_write`` / ``_flush`` / ``_read`` / ``_free`` (the
+global-mode ``Â`` scratch memmap).  A leaf names the time under it; a
+span with children names only the time none of them covers.
 
 Metrics-snapshot schema (``obs.snapshot()``; version ``repro.obs/v1``)
 ----------------------------------------------------------------------
@@ -86,6 +97,10 @@ instrument                            type       producer
                                                  ``WorkerLost`` flush
 ``rss_bytes``                         gauge      resident set (background poller;
                                                  ``peak`` = observed high-water)
+``scratch_io_s``                      telemetry  host seconds of one whole-brain fit's
+                                                 ``wholebrain.scratch_*`` spans
+                                                 (``WholebrainResult.telemetry`` and
+                                                 ``stream_stats_``; 0.0 per block)
 ====================================  =========  ==========================================
 
 Stats ``to_dict()`` payloads (``PrefetchStats``, ``ServiceStats``, and the
@@ -107,8 +122,26 @@ returns before the card finishes, so a span measures the enqueue unless
 the code forces completion.  As in the reference, exactly the
 ``fit.eigh``/``fit.solve`` spans of ``core/ridge.py`` and the whole-brain
 solver and ``fit.foldstats.chunk_update`` call ``torch.cuda.synchronize``,
-and only while a tracer is installed; an untraced run gains no
-synchronise.  An unscored ``serve.wave.execute`` span reads enqueue time.
+and with them the port's ``fit.primal.stats`` / ``.eigh`` / ``.score`` /
+``.solve``, and only while a tracer is installed
+(``device.sync_if_traced``); an untraced run gains no synchronise.  So
+the in-memory ``fit.solve`` of ``BrainEncoder.fit`` ends with its last
+synced leaf on the primal path.  ``wholebrain.score`` and
+``wholebrain.project`` end with their own host reads of the card's
+results; the ``wholebrain.scratch_*`` spans and
+``wholebrain.weights_emit`` are host work.  An unscored
+``serve.wave.execute`` span reads enqueue time.
+
+**Spans on the profiler's timeline.**  While ``torch.profiler`` runs,
+every ``span``/``timed`` region also opens a profiler range of the same
+name (nested as the spans nest, closed on exit, exceptions included),
+with or without a tracer installed, so a device trace names the host
+work in each idle gap by the innermost span around it.  The range adds
+no synchronise: a fit under the profiler alone keeps its untraced
+timeline.  The profiler records ranges of the thread that started it
+only, so the prefetcher thread's ``prefetch.stage`` does not reach its
+trace (the fit thread's ``prefetch.wait`` does).  With the profiler off
+the cost is one flag check and no allocation.
 """
 from repro_torch.obs.metrics import (  # noqa: F401
     REGISTRY, SCHEMA_VERSION, Counter, Gauge, Histogram, MetricsRegistry,

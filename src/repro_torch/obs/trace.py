@@ -32,6 +32,16 @@ measures the region (two ``perf_counter`` calls) and exposes ``.dur_s``,
 emitting the span only when a tracer is installed — so derived stats
 (``PrefetchStats`` stall seconds) and the trace are two views of the
 SAME measurement instead of parallel bookkeeping.
+
+While ``torch.profiler`` runs, ``span`` and ``timed`` also open a
+profiler range under the span's name (``_RecordFunctionFast``), with or
+without a tracer installed, so the spans nest on the profiler's own
+timeline among the torch ops they enclose and name the host work a
+device trace would otherwise call "no torch op".  The range only marks
+time: it adds no synchronise.  The profiler records a range on the
+thread that started it only, so spans of other threads (the
+prefetcher's ``prefetch.stage``) do not reach its trace.  With the
+profiler off the cost is one flag check.
 """
 from __future__ import annotations
 
@@ -40,6 +50,9 @@ import os
 import threading
 import time
 from typing import Any
+
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
 
 __all__ = [
     "Tracer", "span", "timed", "instant", "install", "uninstall",
@@ -67,14 +80,44 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _open_range(name: str) -> _RecordFunctionFast:
+    """An entered profiler range; the caller checked the profiler runs."""
+    rf = _RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
+class _Range:
+    """A span with no tracer installed while ``torch.profiler`` runs: the
+    profiler range alone, nothing recorded."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+
+    def __enter__(self):
+        self._rf = _open_range(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(None, None, None)
+        return False
+
+    def set(self, **attrs):
+        return self
+
+
 class _Span:
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self._t0 = 0.0
+        self._rf = None
 
     def set(self, **attrs):
         """Attach/override attributes mid-span."""
@@ -87,11 +130,15 @@ class _Span:
         if stack is None:
             stack = tls.stack = []
         stack.append(self)
+        if _profiler._is_profiler_enabled:
+            self._rf = _open_range(self.name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
         tr = self._tracer
         stack = tr._tls.stack
         stack.pop()
@@ -109,24 +156,29 @@ class _Timed:
     recorded span, so they can never drift apart.
     """
 
-    __slots__ = ("name", "attrs", "_t0", "dur_s")
+    __slots__ = ("name", "attrs", "_t0", "dur_s", "_rf")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
         self.attrs = attrs
         self.dur_s = 0.0
+        self._rf = None
 
     def set(self, **attrs):
         self.attrs.update(attrs)
         return self
 
     def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self._rf = _open_range(self.name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
         self.dur_s = t1 - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
         tr = _tracer
         if tr is not None:
             stack = getattr(tr._tls, "stack", None)
@@ -242,17 +294,22 @@ def current() -> "Tracer | None":
 
 def span(name: str, **attrs: Any):
     """Open a (context-manager) span — a shared no-op when no tracer is
-    installed, so permanently instrumented hot paths cost one module
-    attribute load on the disabled path."""
+    installed and ``torch.profiler`` is off, so permanently instrumented
+    hot paths cost one module attribute load and one flag check on the
+    disabled path; the profiler's range alone when only the profiler
+    runs."""
     t = _tracer
     if t is None:
+        if _profiler._is_profiler_enabled:
+            return _Range(name)
         return _NULL_SPAN
     return t.span(name, **attrs)
 
 
 def timed(name: str, **attrs: Any) -> _Timed:
     """Always-measured region (see module docstring): ``.dur_s`` is valid
-    whether or not a tracer is installed."""
+    whether or not a tracer is installed; a profiler range too while
+    ``torch.profiler`` runs."""
     return _Timed(name, attrs)
 
 

@@ -215,7 +215,11 @@ def fit_wholebrain(store, cfg: EncoderConfig | None = None, *,
     ``fit.solve``) with the recompile sentinel armed at one new signature
     per update tier for the full run — every block shares the X-only and
     column-block updates; under ``REPRO_OBS_STRICT=1`` a second raises
-    ``obs.RecompileError`` at the update that sees it.
+    ``obs.RecompileError`` at the update that sees it.  Leaf spans name
+    the host work between kernels: ``wholebrain.score``,
+    ``wholebrain.project``, ``wholebrain.weights_emit`` and, in global
+    mode, the ``Â`` scratch's ``wholebrain.scratch_{write,flush,read,
+    free}``, whose seconds sum to ``telemetry["scratch_io_s"]``.
     """
     n, p, t = store.shape
     with obs.span("fit.wholebrain", n=n, p=p, t=t,
@@ -363,22 +367,33 @@ def _fit_wholebrain(store, cfg: EncoderConfig | None, *,
     score_sum = np.zeros((k, r), np.float64)     # global: Σ_cols per fold
     restreamed_x = 0
     blocks_replayed = 0
+    # Host seconds of the global-mode Â scratch: its creation, writes,
+    # flush, read-back and removal (the wholebrain.scratch_* spans).
+    scratch_io = []
+
+    def scratch_timed(name: str, **attrs):
+        t = obs.timed(name, **attrs)
+        scratch_io.append(t)
+        return t
 
     def emit(Wb: np.ndarray, lo: int, hi: int) -> None:
-        if collect:
-            W_full[:, lo:hi] = Wb
-        if writer is not None:
-            writer.append(Wb)
+        with obs.span("wholebrain.weights_emit", lo=lo, hi=hi):
+            if collect:
+                W_full[:, lo:hi] = Wb
+            if writer is not None:
+                writer.append(Wb)
 
     try:
         if lambda_mode == "global":
-            base = scratch_dir or getattr(writer, "scratch_dir", None)
-            if base is None:
-                tmp_holder = tempfile.mkdtemp(prefix="wholebrain_scratch_")
-                base = tmp_holder
-            scratch_path = os.path.join(base, "ahat.npy")
-            scratch = np.lib.format.open_memmap(
-                scratch_path, mode="w+", dtype=np.float32, shape=(p, t))
+            with scratch_timed("wholebrain.scratch_write", bytes=p * t * 4):
+                base = scratch_dir or getattr(writer, "scratch_dir", None)
+                if base is None:
+                    tmp_holder = tempfile.mkdtemp(
+                        prefix="wholebrain_scratch_")
+                    base = tmp_holder
+                scratch_path = os.path.join(base, "ahat.npy")
+                scratch = np.lib.format.open_memmap(
+                    scratch_path, mode="w+", dtype=np.float32, shape=(p, t))
 
         # -- per-block pass: stream the block's columns, score every fold.
         # Block 0 came from the fused first pass; later blocks read X from
@@ -394,7 +409,9 @@ def _fit_wholebrain(store, cfg: EncoderConfig | None, *,
                         # The killed fit's f64 addends in the same block
                         # order: the running sum stays bitwise equal.
                         score_sum += rec["scores"]
-                        scratch[:, lo:hi] = rec["ahat"]
+                        with scratch_timed("wholebrain.scratch_write",
+                                           lo=lo, hi=hi):
+                            scratch[:, lo:hi] = rec["ahat"]
                     else:
                         per_block_lams.append(rec["lam"])
                         per_block_curves.append(rec["curve"])
@@ -440,39 +457,48 @@ def _fit_wholebrain(store, cfg: EncoderConfig | None, *,
                 C_total_b = bstats.C_total                # (p, t_pad)
                 fold_scores = []
                 contrib = np.zeros((k, r), np.float64)    # this block's Σ_cols
-                for f in range(k):
-                    evals_f, Q_f = fold_eigs[f]
-                    u_f, Ghat_f = x_terms[f]
-                    s_rt = foldstats.validation_scores_from_terms(
-                        bstats.C[f], bstats.ysum[f], bstats.ysq[f],
-                        count[f], Q_f, evals_f, C_total_b - bstats.C[f],
-                        lams, cfg.scoring, u_f, Ghat_f)
-                    if lambda_mode == "global":
-                        # Host f64 sums in global column order: the
-                        # aggregate does not depend on the blocking.
-                        contrib[f] = (s_rt[:, :w].cpu().numpy()
-                                      .astype(np.float64).sum(axis=1))
-                    else:
-                        fold_scores.append(s_rt[:, :w].mean(1))
-                    del s_rt
+                # The host reads the scores back (global) or the selected
+                # λ (per block), so the span ends with the card's work.
+                with obs.span("wholebrain.score", folds=k):
+                    for f in range(k):
+                        evals_f, Q_f = fold_eigs[f]
+                        u_f, Ghat_f = x_terms[f]
+                        s_rt = foldstats.validation_scores_from_terms(
+                            bstats.C[f], bstats.ysum[f], bstats.ysq[f],
+                            count[f], Q_f, evals_f, C_total_b - bstats.C[f],
+                            lams, cfg.scoring, u_f, Ghat_f)
+                        if lambda_mode == "global":
+                            # Host f64 sums in global column order: the
+                            # aggregate does not depend on the blocking.
+                            contrib[f] = (s_rt[:, :w].cpu().numpy()
+                                          .astype(np.float64).sum(axis=1))
+                        else:
+                            fold_scores.append(s_rt[:, :w].mean(1))
+                        del s_rt
+                    if lambda_mode != "global":
+                        cv_b = torch.stack(fold_scores).mean(0)
+                        best_b = int(torch.argmax(cv_b))
                 del bstats
                 if lambda_mode == "global":
                     score_sum += contrib
                     # The refit projection of the block: the only
                     # per-block quantity the final solve needs, so λ
                     # selection costs no second pass over the rows.
-                    Ahat_w = _project(Q_R, C_total_b).cpu().numpy()[:, :w]
-                    scratch[:, lo:hi] = Ahat_w
+                    with obs.span("wholebrain.project", p=p):
+                        Ahat_w = _project(Q_R, C_total_b).cpu().numpy()[:, :w]
+                    with scratch_timed("wholebrain.scratch_write",
+                                       lo=lo, hi=hi):
+                        scratch[:, lo:hi] = Ahat_w
                     if jrn is not None:
                         jrn.put_block(bi, scores=contrib, ahat=Ahat_w)
                 else:
-                    cv_b = torch.stack(fold_scores).mean(0)
-                    best_b = int(torch.argmax(cv_b))
-                    Wb = _solve_projected(Q_R, evals_R, lams[best_b],
-                                          _project(Q_R, C_total_b))[:, :w]
+                    # The projection and the block's solve at its own λ.
+                    with obs.span("wholebrain.project", p=p):
+                        Wb = _solve_projected(
+                            Q_R, evals_R, lams[best_b],
+                            _project(Q_R, C_total_b))[:, :w].cpu().numpy()
                     lam_b = float(lams[best_b])
                     curve_b = cv_b.cpu().numpy().astype(np.float64)
-                    Wb = Wb.cpu().numpy()
                     per_block_lams.append(lam_b)
                     per_block_curves.append(curve_b)
                     if jrn is not None:
@@ -489,11 +515,14 @@ def _fit_wholebrain(store, cfg: EncoderConfig | None, *,
             # -- weight pass: read each block's Â back, padded to t_pad as
             # every block's products ran, and solve at the selected λ.
             with obs.span("fit.solve", p=p, blocks=len(bounds)):
-                scratch.flush()
+                with scratch_timed("wholebrain.scratch_flush"):
+                    scratch.flush()
                 for lo, hi in bounds:
                     w = hi - lo
-                    Ab = np.zeros((p, t_pad), np.float32)
-                    Ab[:, :w] = scratch[:, lo:hi]
+                    with scratch_timed("wholebrain.scratch_read",
+                                       lo=lo, hi=hi):
+                        Ab = np.zeros((p, t_pad), np.float32)
+                        Ab[:, :w] = scratch[:, lo:hi]
                     Wb = _solve_projected(Q_R, evals_R, lams[best],
                                           torch.from_numpy(Ab).to(dev))[:, :w]
                     emit(Wb.cpu().numpy(), lo, hi)
@@ -509,12 +538,13 @@ def _fit_wholebrain(store, cfg: EncoderConfig | None, *,
             for lam_b, (lo, hi) in zip(per_block_lams, bounds):
                 lam_t[lo:hi] = lam_b
     finally:
-        if scratch is not None:
-            del scratch                          # unmap before unlink
-        if scratch_path is not None and os.path.exists(scratch_path):
-            os.unlink(scratch_path)
-        if tmp_holder is not None:
-            shutil.rmtree(tmp_holder, ignore_errors=True)
+        if scratch_path is not None or tmp_holder is not None:
+            with scratch_timed("wholebrain.scratch_free"):
+                del scratch                      # unmap before unlink
+                if scratch_path is not None and os.path.exists(scratch_path):
+                    os.unlink(scratch_path)
+                if tmp_holder is not None:
+                    shutil.rmtree(tmp_holder, ignore_errors=True)
 
     telemetry = {
         **agg,
@@ -526,6 +556,7 @@ def _fit_wholebrain(store, cfg: EncoderConfig | None, *,
         "colblock_compile_delta": (colblock_update_compile_count()
                                    - colblock0),
         "scratch_bytes": scratch_bytes if lambda_mode == "global" else 0,
+        "scratch_io_s": sum((s.dur_s for s in scratch_io), 0.0),
         # 1 fused first pass (none on resume) + every block that
         # re-streamed the feature shards because the X chunk cache was not
         # captured (or died with the killed fit).

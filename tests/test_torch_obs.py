@@ -18,7 +18,15 @@ port, then holds the port against the reference on the same inputs:
   runs — and stays silent without ``REPRO_OBS_STRICT``; the armed fit and
   serve paths never raise;
 * with no tracer installed the instrumented paths are free (<2% of a
-  chunked fit) and never call ``torch.cuda.synchronize``.
+  chunked fit) and never call ``torch.cuda.synchronize``;
+* under ``torch.profiler`` every span also opens a profiler range of its
+  name, tracer or not, nested as the spans nest (the port's leaf spans
+  included), and none with the profiler off; the profiler alone adds no
+  synchronise.
+
+The port's leaf spans (``PORT_ONLY_SPANS``) have no counterpart in the
+reference: the trees compared with the reference's set them aside by name
+and assert where each sits and how often it appears.
 """
 import collections
 import json
@@ -28,6 +36,8 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import jax.numpy as jnp
 from repro import obs as jobs
@@ -40,6 +50,7 @@ from repro.serving_encoders import FleetFrontend as JFrontend
 from repro.serving_encoders import traffic as jtraffic
 from repro.wholebrain import fit_wholebrain as jfit_wholebrain
 from repro_torch import obs
+from repro_torch.obs import trace as obs_trace
 from repro_torch.core import foldstats
 from repro_torch.data.store import RunStore
 from repro_torch.device import sync_if_traced
@@ -53,6 +64,14 @@ from repro_torch.wholebrain import fit_wholebrain
 
 # Present only when the reader found the queue full: timing, not structure.
 TIMING_ONLY = {"prefetch.compute_stall"}
+# The port's leaf spans, which name the host work between kernels on the
+# profiler's timeline; the reference has none of them.
+PORT_ONLY_SPANS = {
+    "fit.primal.stats", "fit.primal.eigh", "fit.primal.score",
+    "fit.primal.solve", "wholebrain.score", "wholebrain.project",
+    "wholebrain.weights_emit", "wholebrain.scratch_write",
+    "wholebrain.scratch_flush", "wholebrain.scratch_read",
+    "wholebrain.scratch_free"}
 
 
 @pytest.fixture(autouse=True)
@@ -81,14 +100,23 @@ def _stores(make_run_store, X, Y, n_folds, n_runs=3):
 
 
 def _tree(events):
-    """Multiset of (name, depth, parent) and the attribute keys per name."""
-    events = [e for e in events if e["name"] not in TIMING_ONLY]
+    """Multiset of (name, depth, parent) and the attribute keys per name,
+    the port's own leaves set aside."""
+    events = [e for e in events
+              if e["name"] not in TIMING_ONLY | PORT_ONLY_SPANS]
     shape = collections.Counter((e["name"], e["depth"], e["parent"],
                                  bool(e.get("instant"))) for e in events)
     keys = collections.defaultdict(set)
     for e in events:
         keys[e["name"]].add(tuple(sorted(e["attrs"])))
     return shape, dict(keys)
+
+
+def _port_only(events):
+    """Where the port's own leaves sit: (name, depth, parent) → count."""
+    return collections.Counter((e["name"], e["depth"], e["parent"])
+                               for e in events
+                               if e["name"] in PORT_ONLY_SPANS)
 
 
 def _traced(mod, fn):
@@ -181,6 +209,158 @@ def test_span_thread_safety_distinct_tracks():
         if e["name"].endswith(".child"):
             assert e["parent"] == e["name"][:-len(".child")]
             assert e["depth"] == 1
+
+
+# ---------------------------------------------------------------------------
+# spans on the profiler's timeline
+# ---------------------------------------------------------------------------
+
+WINDOW = "test.window"
+
+
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler`` (host activities) inside a
+    ``WINDOW`` range; returns its result and the profiler's host ranges
+    on the calling thread as (start_ns, end_ns, name)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function(WINDOW):
+            out = fn()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU]
+    (win,) = [e for e in events if e.name() == WINDOW]
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+              for e in events
+              if e.start_thread_id() == win.start_thread_id()
+              and e.name() != WINDOW]
+    return out, ranges
+
+
+def _range_tree(ranges, names):
+    """(name, depth, parent) → count of the ranges named in ``names``,
+    nested among themselves by their intervals."""
+    picked = sorted((s, -e, name) for s, e, name in ranges if name in names)
+    stack, tree = [], collections.Counter()
+    for s, neg_e, name in picked:
+        while stack and stack[-1][0] <= s:
+            stack.pop()
+        tree[(name, len(stack), stack[-1][1] if stack else None)] += 1
+        stack.append((-neg_e, name))
+    return tree
+
+
+def _obs_tree(events):
+    """The same multiset from an ``obs`` trace: spans of the calling
+    thread (the profiler records no other), instants left out."""
+    me = threading.get_ident()
+    return collections.Counter((e["name"], e["depth"], e["parent"])
+                               for e in events
+                               if e["tid"] == me and not e.get("instant"))
+
+
+@pytest.mark.parametrize("with_tracer", [False, True])
+def test_spans_open_profiler_ranges_nested_and_closed_on_raise(with_tracer):
+    if with_tracer:
+        obs.install()
+
+    def body():
+        with obs.span("outer"):
+            try:
+                with obs.span("mid"):
+                    with obs.timed("leaf"):
+                        raise ValueError("boom")
+            except ValueError:
+                pass
+            with obs.timed("after"):
+                pass
+            obs.instant("marker")
+        with obs.span("next"):
+            pass
+
+    _, ranges = _profiled(body)
+    names = {"outer", "mid", "leaf", "after", "next", "marker"}
+    assert _range_tree(ranges, names) == {
+        ("outer", 0, None): 1, ("mid", 1, "outer"): 1, ("leaf", 2, "mid"): 1,
+        ("after", 1, "outer"): 1, ("next", 0, None): 1}
+
+
+def test_no_profiler_range_opens_with_the_profiler_off(monkeypatch):
+    """A counting stand-in for the profiler's range: no span opens one
+    with the profiler off, tracer or not; under the profiler each span of
+    the fit opens and closes exactly one."""
+    opened = []
+
+    class Counting:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            opened.append(self.name)
+
+        def __exit__(self, *exc):
+            opened.append("/" + self.name)
+
+    monkeypatch.setattr(obs_trace, "_RecordFunctionFast", Counting)
+    X, Y = _problem(4, 80, 6, 4)
+
+    def fit():
+        return BrainEncoder(n_folds=3, device="cpu").fit(X, Y)
+
+    assert obs.span("x") is obs.span("y")            # the shared no-op
+    fit()
+    _, events = _traced(obs, fit)
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        fit()
+    spans = sorted(e["name"] for e in events if not e.get("instant"))
+    assert sorted(n for n in opened if n[0] != "/") == spans
+    assert sorted(n[1:] for n in opened if n[0] == "/") == spans
+    assert PORT_ONLY_SPANS & set(spans)
+
+
+def _leaf_fits(make_run_store):
+    """A tiny in-memory fit and a 2-block global-mode fit_wholebrain on
+    the CPU, with the port's leaves each records."""
+    X, Y = _problem(8, 96, 8, 24)
+    store = RunStore.open(make_run_store(X, Y, n_runs=2, n_folds=3).root)
+    return {
+        "in_memory": (lambda: BrainEncoder(n_folds=3, device="cpu").fit(X, Y),
+                      {"fit.primal.stats", "fit.primal.eigh",
+                       "fit.primal.score", "fit.primal.solve"}),
+        "wholebrain": (lambda: fit_wholebrain(
+            store, EncoderConfig(n_folds=3, chunk_rows=32), t_block=12,
+            device="cpu"),
+            PORT_ONLY_SPANS - {"fit.primal.stats", "fit.primal.eigh",
+                               "fit.primal.score", "fit.primal.solve"}),
+    }
+
+
+@pytest.mark.parametrize("kind", ["in_memory", "wholebrain"])
+def test_profiled_fit_records_the_leaves_nested_as_the_obs_trace(
+        make_run_store, kind):
+    fn, leaves = _leaf_fits(make_run_store)[kind]
+    assert obs.current() is None
+    res, ranges = _profiled(fn)
+    if kind == "wholebrain":
+        assert res.telemetry["n_blocks"] == 2
+    _, events = _traced(obs, fn)
+    want = _obs_tree(events)
+    assert leaves <= {name for name, _, _ in want}
+    assert _range_tree(ranges, {name for name, _, _ in want}) == want
+
+
+def test_profiler_alone_never_synchronizes(make_run_store, monkeypatch):
+    """Under the profiler with no tracer the forcing point stays shut:
+    a profiled fit keeps the untraced fit's timeline."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: calls.append(device))
+    fits = _leaf_fits(make_run_store)
+    with profile(activities=[ProfilerActivity.CPU]):
+        sync_if_traced(torch.device("cuda"))
+        for fn, _ in fits.values():
+            fn()
+        during = list(calls)
+    assert during == []
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +624,13 @@ def test_in_memory_fit_span_tree_matches_reference():
     _, tev = _traced(obs, lambda: BrainEncoder(n_folds=3, device="cpu").fit(
         X, Y))
     assert _tree(tev) == _tree(jev)
+    # The primal path's leaves, under the estimator's fit.solve: the
+    # statistics, 3 folds' and the refit's eigh, 3 folds' scores, the solve.
+    assert _port_only(tev) == {
+        ("fit.primal.stats", 2, "fit.solve"): 1,
+        ("fit.primal.eigh", 2, "fit.solve"): 4,
+        ("fit.primal.score", 2, "fit.solve"): 3,
+        ("fit.primal.solve", 2, "fit.solve"): 1}
 
 
 @pytest.mark.parametrize("lambda_mode", ["global", "per_block"])
@@ -464,6 +651,22 @@ def test_wholebrain_span_tree_and_metrics_match_reference(
                                     device="cpu")), keys)
     assert tres.telemetry["n_blocks"] == 4
     assert _tree(tev) == _tree(jev)
+    # Each block's scores and projection; in global mode the Â scratch's
+    # creation (under the root), four block writes, the flush and four
+    # read-backs under the weight pass's fit.solve, and its removal.
+    block = {("wholebrain.score", 2, "wholebrain.block"): 4,
+             ("wholebrain.project", 2, "wholebrain.block"): 4}
+    if lambda_mode == "global":
+        block.update({
+            ("wholebrain.scratch_write", 1, "fit.wholebrain"): 1,
+            ("wholebrain.scratch_write", 2, "wholebrain.block"): 4,
+            ("wholebrain.scratch_flush", 2, "fit.solve"): 1,
+            ("wholebrain.scratch_read", 2, "fit.solve"): 4,
+            ("wholebrain.weights_emit", 2, "fit.solve"): 4,
+            ("wholebrain.scratch_free", 1, "fit.wholebrain"): 1})
+    else:
+        block[("wholebrain.weights_emit", 2, "wholebrain.block")] = 4
+    assert _port_only(tev) == block
     # The first mode run in this process sees the fresh signature.
     assert td[keys[0]] == jd[keys[0]] <= 1
     assert td["bytes_staged"] == jd["bytes_staged"] \

@@ -6,6 +6,9 @@ reference's store, f32 or bf16-as-u16) for both packages; the port on
 its plain tier.  λ must be equal; W and the CV curves agree within the
 tolerance of ``tests/test_kernels.py::_tol`` — not bitwise, because the
 reference's own bitwise tests fail on this tree (ROADMAP queue 3).
+The port's telemetry adds ``scratch_io_s`` (``PORT_ONLY_TELEMETRY``, the
+host seconds of the ``Â`` scratch's spans), which the reference lacks:
+the key sets compared with the reference's set it aside by name.
 """
 import itertools
 
@@ -20,6 +23,7 @@ from repro.encoding import dispatch as jdispatch
 from repro.wholebrain import ColumnBlockAccumulator as JAccumulator
 from repro.wholebrain import column_blocks as jcolumn_blocks
 from repro.wholebrain import fit_wholebrain as jfit
+from repro_torch import obs
 from repro_torch.core import foldstats, ridge
 from repro_torch.data.store import RunStore
 from repro_torch.encoding import BrainEncoder, EncoderConfig, dispatch
@@ -36,6 +40,9 @@ TELEMETRY = {"chunks", "bytes_staged", "read_stall_s", "compute_stall_s",
              "colblock_compile_delta", "scratch_bytes", "row_passes_x",
              "row_passes_y", "x_cache_bytes", "use_pallas", "resumed",
              "blocks_replayed", "blocks_streamed"}
+PORT_ONLY_TELEMETRY = {"scratch_io_s"}
+SCRATCH_SPANS = {"wholebrain.scratch_write", "wholebrain.scratch_flush",
+                 "wholebrain.scratch_read", "wholebrain.scratch_free"}
 
 
 def _tol(dtype):
@@ -146,7 +153,10 @@ def test_fit_wholebrain_matches_reference(make_run_store, lambda_mode,
     np.testing.assert_array_equal(res.lambda_by_target,
                                   jres.lambda_by_target)
     assert res.block_bounds == jres.block_bounds
-    assert set(res.telemetry) == set(jres.telemetry) == TELEMETRY
+    assert set(res.telemetry) - PORT_ONLY_TELEMETRY == set(jres.telemetry) \
+        == TELEMETRY
+    assert PORT_ONLY_TELEMETRY <= set(res.telemetry)
+    assert (res.telemetry["scratch_io_s"] > 0) == (lambda_mode == "global")
     for key in ("n_blocks", "t_pad", "eighs", "row_passes_x",
                 "x_cache_bytes", "scratch_bytes", "chunks", "bytes_staged"):
         assert res.telemetry[key] == jres.telemetry[key], key
@@ -249,6 +259,32 @@ def test_spill_path_and_telemetry(make_run_store):
         (3, 7, 6, 1)
     assert t["scratch_bytes"] == 6 * 18 * 4 and t["use_pallas"] is False
     assert t["blocks_streamed"] == 3 and t["resumed"] is False
+
+
+@pytest.mark.parametrize("lambda_mode", ["global", "per_block"])
+def test_scratch_io_s_is_the_scratch_spans_seconds(make_run_store,
+                                                   lambda_mode):
+    """``scratch_io_s`` is the sum of the fit's four ``wholebrain.scratch_*``
+    spans, the same measurement; 0.0 per block, which has no scratch."""
+    X, Y = _problem(8, 60, 5, 24)
+    _, store = _stores(make_run_store, X, Y, n_folds=3)
+    tracer = obs.install()
+    try:
+        res = fit_wholebrain(store, EncoderConfig(n_folds=3, chunk_rows=21),
+                             t_block=12, lambda_mode=lambda_mode,
+                             device="cpu")
+    finally:
+        obs.uninstall()
+    spans = [e for e in tracer.events() if e["name"] in SCRATCH_SPANS]
+    io_s = res.telemetry["scratch_io_s"]
+    assert isinstance(io_s, float)
+    if lambda_mode == "per_block":
+        assert io_s == 0.0 and spans == []
+        return
+    assert {e["name"] for e in spans} == SCRATCH_SPANS
+    assert io_s > 0
+    assert io_s == pytest.approx(sum(e["dur_us"] for e in spans) / 1e6,
+                                 abs=1e-5)
 
 
 def test_signature_counts_one_fresh_zero_repeat(make_run_store):
@@ -361,7 +397,9 @@ def test_estimator_routes_colblocked_like_reference(make_run_store):
     np.testing.assert_allclose(rep.weights.numpy(), np.asarray(jrep.weights),
                                **F32)
     np.testing.assert_allclose(rep.cv_scores, jrep.cv_scores, **F32)
-    assert set(enc.stream_stats_) == set(jenc.stream_stats_)
+    assert set(enc.stream_stats_) - PORT_ONLY_TELEMETRY \
+        == set(jenc.stream_stats_)
+    assert enc.stream_stats_["scratch_io_s"] > 0
     assert enc.stream_stats_["n_blocks"] == 3
     assert enc.stream_stats_["compile_count"] <= 1
     # The unblocked chunked route on the same store agrees.
